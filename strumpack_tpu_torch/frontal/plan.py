@@ -1,0 +1,289 @@
+"""Level-batched execution plan for multifrontal factorization.
+
+Role of the reference's GPU ``LevelInfo`` (FrontGPU.cpp:43-215) generalized
+into the *only* numeric execution model: the host flattens the elimination
+tree into levels (all fronts of equal depth), bins each level's fronts into
+padded (sep_pad, upd_pad) buckets, and emits static index plans so the
+numeric phase is gathers, scatter-adds and batched dense kernels over
+uniform shapes.
+
+* ragged separator sizes inside a bucket are handled by **identity padding**
+  of F11: padding rows/cols hold 1 on the diagonal and 0 elsewhere, which is
+  exact under partial-pivoted LU (a padding row can never be selected as a
+  pivot for a real column and contributes nothing to the Schur update).
+* sparse assembly is a single scatter-add of ``Avals[asm_vidx]`` into the
+  bucket tensor; values are gathered from the device copy of the permuted
+  CSR values, so ``update_matrix_values`` reuses the entire plan
+  (the reference's structure-reuse feature, StrumpackSparseSolver.hpp:196).
+
+This is the dense-front part of ``strumpack_tpu/frontal/plan.py``: the plan
+arrays are identical to that module's for ``CompressionType.NONE``.
+Compressed front types (BLR, HSS, HODLR, HODBF, lossy), nf-chunked buckets
+and the distributed plan build are not part of this package yet.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ..sparse.csr import CSRMatrix
+from ..sparse.separator_tree import SeparatorTree
+
+# Padded-size schedule: fine at small sizes (batch parallelism dominates),
+# ~1.5x geometric at large sizes (bounds the number of bucket shapes and
+# the pad waste).
+_PAD_SCHEDULE = [0, 4, 8, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512,
+                 768, 1024, 1536, 2048, 3072, 4096, 6144, 8192, 12288, 16384,
+                 24576, 32768]
+
+
+def pad_size(x: int) -> int:
+    for p in _PAD_SCHEDULE:
+        if p >= x:
+            return p
+    raise ValueError(f"front dimension {x} exceeds pad schedule")
+
+
+def batch_pad(x: int) -> int:
+    """Round a bucket's batch count up to a power of two (dummy identity
+    fronts fill the tail), as the JAX plan does."""
+    p = 1
+    while p < x:
+        p *= 2
+    return p
+
+
+@dataclass
+class BucketPlan:
+    """All fronts of one level sharing a padded (s_pad, u_pad) shape."""
+
+    level: int
+    s_pad: int
+    u_pad: int
+    fronts: np.ndarray          # [nf_real] global front ids
+    ds: np.ndarray              # [nf] separator sizes (0 for dummy tail)
+    du: np.ndarray              # [nf] update sizes (0 for dummy tail)
+    # sparse assembly: F[asm_bidx, asm_r, asm_c] += vals_ext[asm_vidx]
+    asm_bidx: np.ndarray = None   # [na] batch index
+    asm_r: np.ndarray = None      # [na] row within the padded front
+    asm_c: np.ndarray = None      # [na] col within the padded front
+    asm_vidx: np.ndarray = None   # [na] index into extended values array
+    # extend-add maps, one set per child side
+    posL: np.ndarray = None     # [nf, p] slot -> index in left child's upd, -1
+    posR: np.ndarray = None
+    offL: np.ndarray = None     # [nf] offset into child level's flat CB buffer
+    offR: np.ndarray = None
+    strideL: np.ndarray = None  # [nf] child u_pad
+    strideR: np.ndarray = None
+    voffL: np.ndarray = None    # [nf] offset into child level's flat CB vector
+    voffR: np.ndarray = None
+    # solve-phase global index maps (value n = zero padding slot)
+    sep_glob: np.ndarray = None  # [nf, s_pad]
+    upd_glob: np.ndarray = None  # [nf, u_pad]
+    # structural child-presence flags: hasL[k] == front k has a left
+    # child with a nonempty update set
+    hasL: np.ndarray = None      # [nf] bool
+    hasR: np.ndarray = None      # [nf] bool
+
+    @property
+    def nf(self) -> int:
+        return len(self.ds)  # padded batch count
+
+    @property
+    def nf_real(self) -> int:
+        return len(self.fronts)
+
+    @property
+    def p(self) -> int:
+        return self.s_pad + self.u_pad
+
+
+@dataclass
+class LevelPlan:
+    """Full factorization schedule: levels[0] is the deepest level."""
+
+    n: int
+    nnz: int
+    tree: SeparatorTree
+    upd: list
+    levels: list = field(default_factory=list)  # list[list[BucketPlan]]
+    cb_sizes: list = field(default_factory=list)   # flat CB floats per level
+    cbv_sizes: list = field(default_factory=list)  # flat CB vector rows/level
+    factor_nnz: int = 0
+    factor_flops: int = 0
+    max_front: int = 0
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.levels)
+
+
+def build_plan(Ap: CSRMatrix, tree: SeparatorTree,
+               upd: list[np.ndarray], compression=None) -> LevelPlan:
+    """compression: None or an SPOptions-like object; only
+    ``CompressionType.NONE`` (dense fronts) is supported here."""
+    if compression is not None:
+        from ..options import CompressionType
+        if compression.compression != CompressionType.NONE:
+            raise NotImplementedError(
+                f"compression {compression.compression.name}: only dense "
+                "fronts (CompressionType.NONE) are ported")
+    n, nnz = Ap.n, Ap.nnz
+    nseps = tree.nseps
+    depths = tree.depths()
+    maxd = int(depths.max()) if nseps else 0
+
+    ds_all = (tree.sep_end - tree.sep_begin).astype(np.int64)
+    du_all = np.array([len(u) for u in upd], dtype=np.int64)
+
+    # ---- global helper arrays ------------------------------------------
+    # owner front of each matrix index
+    front_of = np.empty(n, dtype=np.int64)
+    for i in range(nseps):
+        front_of[tree.sep_begin[i]:tree.sep_end[i]] = i
+    # concatenated upd arrays with keyed search support
+    cat_off = np.zeros(nseps + 1, dtype=np.int64)
+    np.cumsum(du_all, out=cat_off[1:])
+    upd_cat = (np.concatenate([np.asarray(u) for u in upd])
+               if cat_off[-1] > 0 else np.empty(0, dtype=np.int64))
+    # key = front * (n+1) + index, globally sorted (postorder front-major)
+    upd_keys = (np.repeat(np.arange(nseps, dtype=np.int64), du_all) * (n + 1)
+                + upd_cat if cat_off[-1] > 0
+                else np.empty(0, dtype=np.int64))
+    upd_off = cat_off[:-1]
+
+    def find_in_upd(front_ids, glob):
+        """Vectorized: position of glob[k] in upd[front_ids[k]], or -1."""
+        key = front_ids * (n + 1) + glob
+        pos = np.searchsorted(upd_keys, key)
+        ok = (pos < len(upd_keys)) & (glob >= 0)
+        hit = np.zeros(len(key), dtype=bool)
+        hit[ok] = upd_keys[pos[ok]] == key[ok]
+        local = np.where(hit, pos - upd_off[front_ids], -1)
+        return local.astype(np.int64)
+
+    # ---- bucket assignment ---------------------------------------------
+    s_pad_all = np.array([pad_size(int(d)) for d in ds_all], dtype=np.int64)
+    u_pad_all = np.array([pad_size(int(d)) for d in du_all], dtype=np.int64)
+
+    plan = LevelPlan(n=n, nnz=nnz, tree=tree, upd=upd)
+    # front -> cb offset / vec offset / batch index, assigned as levels build
+    cb_off_of = np.full(nseps, -1, dtype=np.int64)
+    cbv_off_of = np.full(nseps, -1, dtype=np.int64)
+    batch_of = np.full(nseps, -1, dtype=np.int64)
+
+    # global per-entry ownership for assembly (vectorized)
+    rows_all = np.repeat(np.arange(n, dtype=np.int64), np.diff(Ap.rowptr))
+    cols_all = Ap.colind
+    owner = front_of[np.minimum(rows_all, cols_all)]
+    owner_depth = depths[owner]
+    bucket_id_of = np.full(nseps, -1, dtype=np.int64)
+
+    for k in range(maxd + 1):
+        depth = maxd - k
+        fids = np.nonzero(depths == depth)[0]
+        level_buckets = []
+        cb_total = 0
+        cbv_total = 0
+        # group by (s_pad, u_pad)
+        keys = s_pad_all[fids] * (10**9) + u_pad_all[fids]
+        for key in np.unique(keys):
+            sel = fids[keys == key]
+            nfr = len(sel)
+            nf = batch_pad(nfr)
+            ds_b = np.zeros(nf, dtype=np.int32)
+            du_b = np.zeros(nf, dtype=np.int32)
+            ds_b[:nfr] = ds_all[sel]
+            du_b[:nfr] = du_all[sel]
+            bp = BucketPlan(level=k, s_pad=int(s_pad_all[sel[0]]),
+                            u_pad=int(u_pad_all[sel[0]]),
+                            fronts=sel, ds=ds_b, du=du_b)
+            sp, up, p = bp.s_pad, bp.u_pad, bp.p
+            # structural child-presence flags (see BucketPlan.hasL doc)
+            for side, cha in (("L", tree.lch), ("R", tree.rch)):
+                chb = np.full(nf, -1, dtype=np.int64)
+                chb[:nfr] = cha[sel]
+                setattr(bp, "has" + side,
+                        (chb >= 0) & (du_all[np.maximum(chb, 0)] > 0))
+            batch_of[sel] = np.arange(nfr)
+            # CB offsets in this level's flat buffers
+            cb_off_of[sel] = cb_total + np.arange(nfr, dtype=np.int64) * (up * up)
+            cbv_off_of[sel] = cbv_total + np.arange(nfr, dtype=np.int64) * up
+            cb_total += nf * up * up
+            cbv_total += nf * up
+
+            # ---- solve index maps
+            sb = np.zeros((nf, 1), dtype=np.int64)
+            sb[:nfr, 0] = tree.sep_begin[sel]
+            i_s = np.arange(sp)[None, :]
+            bp.sep_glob = np.where(i_s < ds_b[:, None], sb + i_s, n)
+            bp.sep_glob = bp.sep_glob.astype(np.int32)
+            ug = np.full((nf, up), n, dtype=np.int32)
+            for bi, f in enumerate(sel):
+                ug[bi, :du_all[f]] = upd[int(f)]
+            bp.upd_glob = ug
+
+            # ---- extend-add pos arrays
+            glob = np.full((nf, p), -1, dtype=np.int64)
+            glob[:, :sp] = np.where(i_s < ds_b[:, None], sb + i_s, -1)
+            glob[:, sp:] = np.where(ug[:, :up] < n, ug[:, :up], -1)
+            for side in ("L", "R"):
+                ch = np.full(nf, -1, dtype=np.int64)
+                ch[:nfr] = (tree.lch if side == "L" else tree.rch)[sel]
+                has = ch >= 0
+                pos = np.full((nf, p), -1, dtype=np.int64)
+                if has.any() and p > 0:
+                    chh = ch[has]
+                    pos[has] = find_in_upd(
+                        np.repeat(chh, p), glob[has].ravel()).reshape(-1, p)
+                off = np.where(has, cb_off_of[np.maximum(ch, 0)], 0)
+                voff = np.where(has, cbv_off_of[np.maximum(ch, 0)], 0)
+                stride = np.where(has, u_pad_all[np.maximum(ch, 0)], 1)
+                setattr(bp, "pos" + side, pos.astype(np.int32))
+                setattr(bp, "off" + side, off.astype(np.int64))
+                setattr(bp, "voff" + side, voff.astype(np.int64))
+                setattr(bp, "stride" + side, stride.astype(np.int32))
+            level_buckets.append(bp)
+
+        # ---- assembly plan for this level (vectorized over all entries)
+        in_level = owner_depth == depth
+        er = rows_all[in_level]
+        ec = cols_all[in_level]
+        eo = owner[in_level]
+        ev = np.nonzero(in_level)[0]
+        sb_e = tree.sep_begin[eo]
+        se_e = tree.sep_end[eo]
+        r_in_sep = (er >= sb_e) & (er < se_e)
+        c_in_sep = (ec >= sb_e) & (ec < se_e)
+        sp_e = s_pad_all[eo]
+        rpos = np.where(r_in_sep, er - sb_e, sp_e + find_in_upd(eo, er))
+        cpos = np.where(c_in_sep, ec - sb_e, sp_e + find_in_upd(eo, ec))
+        # drop F22 entries (assembled at an ancestor) and any misses
+        keep = r_in_sep | c_in_sep
+        for bi_b, bp in enumerate(level_buckets):
+            bucket_id_of[bp.fronts] = bi_b
+        ebkt = bucket_id_of[eo]
+        for bi_b, bp in enumerate(level_buckets):
+            m = keep & (ebkt == bi_b)
+            bidx = batch_of[eo[m]]
+            vidx = ev[m]
+            # identity padding of F11: diagonal ones on slots [ds, s_pad)
+            pad_b, pad_i = np.nonzero(
+                np.arange(bp.s_pad)[None, :] >= bp.ds[:, None])
+            bp.asm_bidx = np.concatenate([bidx, pad_b]).astype(np.int32)
+            bp.asm_r = np.concatenate([rpos[m], pad_i]).astype(np.int32)
+            bp.asm_c = np.concatenate([cpos[m], pad_i]).astype(np.int32)
+            bp.asm_vidx = np.concatenate(
+                [vidx, np.full(len(pad_b), nnz + 1)]).astype(np.int64)
+
+        plan.levels.append(level_buckets)
+        plan.cb_sizes.append(cb_total)
+        plan.cbv_sizes.append(cbv_total)
+
+    # ---- stats ----------------------------------------------------------
+    from ..sparse.symbolic import factor_flops, factor_nonzeros
+    plan.factor_nnz = factor_nonzeros(tree, upd)
+    plan.factor_flops = factor_flops(tree, upd)
+    plan.max_front = int((ds_all + du_all).max()) if nseps else 0
+    return plan

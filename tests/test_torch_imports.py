@@ -1,0 +1,73 @@
+"""The port stands alone: strumpack_tpu_torch and chip_smoke.py import
+neither JAX nor anything of strumpack_tpu, and the port's entry points do
+not fall back to the CPU quietly."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "strumpack_tpu_torch")
+
+
+def _forbidden(mod):
+    return (mod == "jax" or mod.startswith("jax.") or mod.startswith("jaxlib")
+            or mod == "strumpack_tpu" or mod.startswith("strumpack_tpu."))
+
+
+def _imports(path):
+    """Absolute module names a source file imports (relative imports stay
+    inside its own package)."""
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_package_run_imports_no_jax():
+    """A fresh interpreter (no test conftest) imports the package and runs
+    its host pipeline and a small CPU solve: no jax* and no
+    strumpack_tpu.* module may appear in sys.modules."""
+    code = (
+        "import sys, numpy as np\n"
+        "import strumpack_tpu_torch as st\n"
+        "from strumpack_tpu_torch.sparse.gen import poisson2d\n"
+        "import strumpack_tpu_torch.interop\n"
+        "A = poisson2d(8)\n"
+        "s = st.SparseSolver(st.SPOptions(), device='cpu')\n"
+        "s.set_csr_matrix(A)\n"
+        "s.reorder(8, 8)\n"
+        "x, rc = s.solve(A.spmv(np.ones(A.n)))\n"
+        "assert rc == st.ReturnCode.SUCCESS\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax')"
+        " or m == 'strumpack_tpu' or m.startswith('strumpack_tpu.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_sources_import_no_jax():
+    """Every module of the package and chip_smoke.py, by their ASTs."""
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(PKG):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    bad = {f: m for f in files for m in _imports(f) if _forbidden(m)}
+    assert len(files) > 15 and not bad, bad
+
+
+def test_solver_without_device_needs_cuda():
+    from strumpack_tpu_torch import SparseSolver
+    if torch.cuda.is_available():
+        pytest.skip("CUDA present: the default device exists")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SparseSolver()
+    assert SparseSolver(device="cpu").device.type == "cpu"
