@@ -6,15 +6,20 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: CUDA present; card name and power limit, torch/CUDA versions;
-2. build: both CUDA kernels compiled from csrc/ with nvcc for sm_90a;
+2. build: the four CUDA kernels compiled from csrc/ with nvcc for sm_90a,
+   one nvcc per source, all started together;
 3. each kernel against its plain PyTorch version on the card, at shapes of
-   the exact64 path: K1 (extend-add) bit-exact on real 64^3 plan maps, K3
-   (cross-shape front LU) by the layered check below; kernel, plain and
-   library times by CUDA events (median of 15 after 3 warm-ups);
+   the main paths: K1 (extend-add) bit-exact on real 64^3 plan maps, K3
+   (cross-shape front LU), K2 (small-front LU) and K4 (panel LU, both its
+   variants, and the blocked LU over it) by the layered checks below;
+   kernel, plain and library times by CUDA events (median of 15 after 3
+   warm-ups);
 4. exact32: Poisson 32^3, f32 factor + f32 iterative refinement to 1e-5;
 5. exact64: Poisson 64^3, the same, plus peak device memory;
 6. f64: Poisson 32^3 in float64 (the kernels' double instantiation);
-7. one JSON line {"kernels": [...]}, then the last line
+7. blr50: Poisson 50^3 with BLR fronts, f32, preconditioned GMRES to 1e-4
+   (bench.py's blr50 configuration), plus peak device memory;
+8. one JSON line {"kernels": [...]}, then the last line
    {"ok": true, "device": {...}}.
 
 The launch counters are set to 0 just before each solver phase factors
@@ -58,8 +63,12 @@ def cuda_ms(fn, torch, warmup=3, reps=15):
     return float(np.median(times))
 
 
+T_START = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T_START:.1f} s)",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -118,6 +127,192 @@ def check_k1(torch, pdev, rng):
     return out
 
 
+def backward_errors(torch, P1, P2, L11, L21, U, U12):
+    """Per front: |P F - L U| / (|L| |U|) over the factored columns and
+    |P F12 - L11 U12| / (|L11| |U12|), in f64.  LU with partial pivoting
+    meets both with gamma_s = s eps / (1 - s eps) (Higham, Thm 9.3)."""
+    L = L11 if L21 is None else torch.cat([L11, L21], dim=1)
+    R1 = P1 - L @ U
+    be = R1.abs().amax(dim=(1, 2)) / (L.abs() @ U.abs()).amax(dim=(1, 2))
+    if U12 is not None and U12.shape[-1]:
+        R2 = P2 - L11 @ U12
+        be2 = R2.abs().amax(dim=(1, 2)) / (L11.abs() @ U12.abs()).amax(
+            dim=(1, 2)).clamp(min=1e-300)
+        be = be.maximum(be2)
+    return be
+
+
+def compare(what, got, want, same, tol):
+    """Values of the fronts with equal perm, relative to each output's
+    largest entry on the front; returns the largest absolute error."""
+    err = 0.0
+    for name, a, b in zip(what, got, want):
+        if not a.numel():
+            continue
+        d = (a[same] - b[same]).abs().flatten(1).amax(dim=1)
+        scale = b[same].abs().flatten(1).amax(dim=1).clamp(min=1e-300)
+        check(bool((d <= tol * scale).all()), f"{name} values")
+        err = max(err, float(d.max()))
+    return err
+
+
+def k2_flops(nf, p, s):
+    """Divisions and rank-1 updates of the rows not yet pivoted."""
+    k = np.arange(s)
+    return nf * int(((p - k - 1) + 2 * (p - k - 1) ** 2).sum())
+
+
+def check_k2(torch, rng, nf, p, s, dtype, pivot=True):
+    """K2 against its plain version: perm identical, values by the layered
+    check, the zero pivot of front 0 replaced, backward error."""
+    from strumpack_tpu_torch.ops import front_lu as FL
+    eps = float(np.finfo(dtype).eps)
+    thresh = float(np.sqrt(eps))
+    Fn = rng.standard_normal((nf, p, p)).astype(dtype)
+    if not pivot:       # diagonally dominant: stable without pivoting
+        Fn += np.eye(p, dtype=dtype) * 2 * p
+    Fn[0, :, 0] = 0.0   # front 0: a zero pivot, replaced by thresh
+    F = torch.from_numpy(Fn).cuda()
+    k = FL.factor_bucket(F, thresh, s, pivot)
+    q = FL.factor_bucket_plain(F, thresh, s, pivot)
+    torch.cuda.synchronize()
+    same = (k[1] == q[1]).all(dim=1)
+    check(bool(same.all()), f"K2 perm identical ({int((~same).sum())} "
+          f"fronts differ) at {(nf, p, s, dtype, pivot)}")
+    tol = 1e-5 if dtype == "float32" else 1e-12
+    err = compare(("K2 packed",), (k[0],), (q[0],), same, tol)
+    lu, L21, U12, CB = (x.double() for x in FL.unpack_factors(k[0], s))
+    perm = k[1]
+    Fd = F.double()
+    L11 = torch.tril(lu, -1) + torch.eye(s, dtype=torch.float64,
+                                         device=F.device)
+    U = torch.triu(lu)
+    P1 = torch.cat([torch.gather(Fd[:, :s, :s], 1,
+                                 perm[:, :, None].expand(-1, -1, s)),
+                    Fd[:, s:, :s]], dim=1)
+    P2 = torch.gather(Fd[:, :s, s:], 1, perm[:, :, None].expand(-1, -1, p - s))
+    be = backward_errors(torch, P1, P2, L11, L21 if p > s else None, U, U12)
+    replaced = (torch.diagonal(U, dim1=1, dim2=2).abs()
+                == float(np.asarray(thresh, dtype))).any(dim=1)
+    check(bool(replaced[0]), "K2 front 0 has its zero pivot replaced")
+    ok = ~replaced
+    check(bool((be[ok] <= tol).all()), f"K2 backward error {float(be[ok].max()):.3g}")
+    if p > s:           # the Schur complement: CB = F22 - L21 U12
+        rcb = (Fd[:, s:, s:] - L21 @ U12 - CB).abs().amax(dim=(1, 2))
+        scb = (Fd[:, s:, s:].abs() + L21.abs() @ U12.abs()).amax(dim=(1, 2))
+        check(bool((rcb[ok] <= tol * scb[ok]).all()), "K2 Schur complement")
+    del lu, L21, U12, CB, Fd, L11, U, P1, P2
+
+    ms = cuda_ms(lambda: FL.factor_bucket(F, thresh, s, pivot), torch)
+    plain = cuda_ms(lambda: FL.factor_bucket_plain(F, thresh, s, pivot),
+                    torch)
+    # yardstick: the library route on the same batch (lu_factor_ex alone
+    # for a full LU), timed only
+    lib = cuda_ms((lambda: FL.library_factor(F, thresh, s)) if s < p else
+                  (lambda: torch.linalg.lu_factor_ex(F)), torch)
+    nbytes = nf * (np.dtype(dtype).itemsize * 2 * p * p + 8 * s)
+    tb = nbytes / PEAK_BYTES * 1e3
+    tf = k2_flops(nf, p, s) / PEAK_FLOPS[dtype] * 1e3
+    rec = dict(nf=nf, p=p, s=s, dtype=dtype, pivot=pivot,
+               replaced_fronts=int(replaced.sum()), max_abs_err=err,
+               backward_error=float(be[ok].max()), ms=ms, plain_ms=plain,
+               library_ms=lib, bound_ms=max(tb, tf),
+               bound_by="bytes" if tb >= tf else "operations")
+    print("K2", json.dumps(rec), flush=True)
+    return rec
+
+
+def k4_flops(nf, p, w, row0):
+    """Divisions and rank-1 updates of the updatable rows of a panel."""
+    k = np.arange(w)
+    nr = p - row0 - k - 1
+    return nf * int((nr + 2 * nr * (w - k - 1)).sum())
+
+
+def check_k4(torch, rng, nf, p, w, row0, dtype, want_variant):
+    """K4 against its plain version on one panel per front (pivots from
+    rows [row0, p)): pivot rows identical, values by the layered check, the
+    zero pivot of front 0 replaced, backward error of the permuted panel."""
+    from strumpack_tpu_torch.ops import panel_lu as PP
+    eps = float(np.finfo(dtype).eps)
+    thresh = float(np.sqrt(eps))
+    check(PP.variant(p, w, np.dtype(dtype).itemsize) == want_variant,
+          f"K4 variant at {(p, w, dtype)}")
+    Pn = rng.standard_normal((nf, p, w)).astype(dtype)
+    Pn[0, :, 0] = 0.0
+    panel = torch.from_numpy(Pn).cuda()
+    before = dict(PP.panel_lu.variants)
+    k = PP.panel_lu(panel, thresh, row0, w, p)
+    check(PP.panel_lu.variants[want_variant] == before[want_variant] + 1,
+          f"K4 launched its {want_variant} variant")
+    q = PP.panel_lu_plain(panel, thresh, row0, w, p)
+    torch.cuda.synchronize()
+    same = (k[1] == q[1]).all(dim=1)
+    check(bool(same.all()), f"K4 pivot rows identical at {(nf, p, w, row0)}")
+    tol = 1e-5 if dtype == "float32" else 1e-12
+    err = compare(("K4 panel",), (k[0],), (q[0],), same, tol)
+    # P panel[row0:] = [L11; L21] U11 on the rows it eliminates
+    pj = PP.panel_perm(k[1], p, row0, w)
+    G = torch.gather(k[0].double(), 1, pj[:, :, None].expand(-1, -1, w))
+    Pin = torch.gather(panel.double(), 1, pj[:, :, None].expand(-1, -1, w))
+    eye = torch.eye(w, dtype=torch.float64, device=panel.device)
+    L11 = torch.tril(G[:, row0:row0 + w], -1) + eye
+    U = torch.triu(G[:, row0:row0 + w])
+    be = backward_errors(torch, Pin[:, row0:], None, L11, G[:, row0 + w:], U, None)
+    replaced = (torch.diagonal(U, dim1=1, dim2=2).abs()
+                == float(np.asarray(thresh, dtype))).any(dim=1)
+    check(bool(replaced[0]), "K4 front 0 has its zero pivot replaced")
+    check(bool((be[~replaced] <= tol).all()),
+          f"K4 backward error {float(be[~replaced].max()):.3g}")
+    check(torch.equal(k[0][:, :row0], panel[:, :row0]), "K4 rows < row0 kept")
+    del G, Pin, L11, U
+
+    ms = cuda_ms(lambda: PP.panel_lu(panel, thresh, row0, w, p), torch)
+    plain = cuda_ms(lambda: PP.panel_lu_plain(panel, thresh, row0, w, p),
+                    torch)
+    sub = panel[:, row0:].contiguous()
+    lib = cuda_ms(lambda: torch.linalg.lu_factor_ex(sub), torch)
+    nbytes = nf * (np.dtype(dtype).itemsize * 2 * p * w + 8 * w)
+    tb = nbytes / PEAK_BYTES * 1e3
+    tf = k4_flops(nf, p, w, row0) / PEAK_FLOPS[dtype] * 1e3
+    rec = dict(nf=nf, p=p, w=w, row0=row0, dtype=dtype, variant=want_variant,
+               max_abs_err=err, backward_error=float(be[~replaced].max()),
+               ms=ms, plain_ms=plain, library_ms=lib, bound_ms=max(tb, tf),
+               bound_by="bytes" if tb >= tf else "operations")
+    print("K4", json.dumps(rec), flush=True)
+    return rec
+
+
+def check_blocked(torch, rng, nf, m, dtype):
+    """The blocked LU over K4 against the same blocked LU over the plain
+    panel version: a full LU of [nf, m, m] tiles (two panels at m = 256),
+    as batched_lu runs it for the BLR tiles."""
+    from strumpack_tpu_torch.ops import panel_lu as PP
+    thresh = float(np.sqrt(np.finfo(dtype).eps))
+    F = torch.from_numpy(rng.standard_normal((nf, m, m)).astype(dtype)).cuda()
+    k = PP.blocked_factor_bucket(F, thresh, m)
+    q = PP.blocked_factor_bucket(F, thresh, m, panel=PP.panel_lu_plain)
+    torch.cuda.synchronize()
+    same = (k[1] == q[1]).all(dim=1)
+    check(bool(same.all()), "blocked LU: perm identical")
+    tol = 1e-5 if dtype == "float32" else 1e-12
+    err = compare(("blocked lu",), (k[0],), (q[0],), same, tol)
+    lu = k[0].double()
+    L = torch.tril(lu, -1) + torch.eye(m, dtype=torch.float64, device=F.device)
+    PF = torch.gather(F.double(), 1, k[1][:, :, None].expand(-1, -1, m))
+    be = backward_errors(torch, PF, None, L, None, torch.triu(lu), None)
+    check(bool((be <= 4 * tol).all()), f"blocked backward error {float(be.max()):.3g}")
+    ms = cuda_ms(lambda: PP.blocked_factor_bucket(F, thresh, m), torch)
+    plain = cuda_ms(lambda: PP.blocked_factor_bucket(
+        F, thresh, m, panel=PP.panel_lu_plain), torch)
+    lib = cuda_ms(lambda: torch.linalg.lu_factor_ex(F), torch)
+    rec = dict(nf=nf, m=m, dtype=dtype, max_abs_err=err,
+               backward_error=float(be.max()), ms=ms, plain_ms=plain,
+               library_ms=lib)
+    print("K4-blocked", json.dumps(rec), flush=True)
+    return rec
+
+
 def k3_flops(nf, p, s):
     """Elimination (divisions + rank-1 updates of A and B) and Schur GEMM."""
     u = p - s
@@ -149,41 +344,27 @@ def check_k3(torch, rng, nf, p, s, dtype):
     # largest entry on the front: an operation-order change gives errors
     # of order s * eps * growth, well under these tolerances
     tol = 1e-5 if dtype == "float32" else 1e-12
-    err = 0.0
-    for name, a, b in zip(names, k, q):
-        if name == "perm":
-            continue
-        d = (a[same] - b[same]).abs().amax(dim=(1, 2))
-        scale = b[same].abs().amax(dim=(1, 2)).clamp(min=1e-300)
-        check(bool((d <= tol * scale).all()), f"K3 {name} values")
-        err = max(err, float(d.max()))
-    # layer 3: backward error on every front without a replaced pivot,
-    # |P [F11; F21] - L U| <= tol |L| |U| and |P F12 - L11 U12| <=
-    # tol |L11| |U12|: LU with partial pivoting meets these with
-    # gamma_s = s eps / (1 - s eps) (Higham, Thm 9.3), which is below tol
+    err = compare([f"K3 {n}" for n in names if n != "perm"],
+                  k[:1] + k[2:], q[:1] + q[2:], same, tol)
+    # layer 3: backward error on every front without a replaced pivot
     lu, L21, U12 = (k[i].double() for i in (0, 2, 3))
     perm = k[1]
-    eye = torch.eye(s, dtype=torch.float64, device=F.device)
-    L11 = torch.tril(lu, -1) + eye
+    L11 = torch.tril(lu, -1) + torch.eye(s, dtype=torch.float64,
+                                         device=F.device)
     U = torch.triu(lu)
     Fd = F.double()
-    PF1 = torch.gather(Fd[:, :s, :s], 1, perm[:, :, None].expand(-1, -1, s))
-    PF2 = torch.gather(Fd[:, :s, s:], 1,
-                       perm[:, :, None].expand(-1, -1, p - s))
-    L = torch.cat([L11, L21], dim=1)
-    R1 = torch.cat([PF1, Fd[:, s:, :s]], dim=1) - L @ U
-    B1 = L.abs() @ U.abs()
-    R2 = PF2 - L11 @ U12
-    B2 = L11.abs() @ U12.abs()
+    P1 = torch.cat([torch.gather(Fd[:, :s, :s], 1,
+                                 perm[:, :, None].expand(-1, -1, s)),
+                    Fd[:, s:, :s]], dim=1)
+    P2 = torch.gather(Fd[:, :s, s:], 1, perm[:, :, None].expand(-1, -1, p - s))
+    be = backward_errors(torch, P1, P2, L11, L21, U, U12)
     replaced = (torch.diagonal(U, dim1=1, dim2=2).abs()
                 == float(np.asarray(thresh, dtype))).any(dim=1)
     check(bool(replaced[0]), "K3 front 0 has its zero pivot replaced")
     ok = ~replaced
-    be1 = (R1.abs().amax(dim=(1, 2)) / B1.amax(dim=(1, 2)))[ok]
-    be2 = (R2.abs().amax(dim=(1, 2)) / B2.amax(dim=(1, 2)))[ok]
-    check(bool((be1 <= tol).all() and (be2 <= tol).all()),
-          f"K3 backward error {float(be1.max()):.3g} {float(be2.max()):.3g}")
-    del lu, L21, U12, L11, U, Fd, PF1, PF2, L, R1, B1, R2, B2
+    check(bool((be[ok] <= tol).all()),
+          f"K3 backward error {float(be[ok].max()):.3g}")
+    del lu, L21, U12, L11, U, Fd, P1, P2
 
     ms = cuda_ms(lambda: FL.partial_factor(F, thresh, s), torch)
     plain = cuda_ms(lambda: FL.partial_factor_plain(F, thresh, s), torch)
@@ -199,8 +380,7 @@ def check_k3(torch, rng, nf, p, s, dtype):
     tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     rec = dict(nf=nf, p=p, s=s, dtype=dtype, perm_flips=flips,
                replaced_fronts=int(replaced.sum()), max_abs_err=err,
-               backward_error=max(float(be1.max()), float(be2.max())),
-               ms=ms, schur_ms=schur, plain_ms=plain, library_ms=lib,
+               backward_error=float(be[ok].max()), ms=ms, schur_ms=schur, plain_ms=plain, library_ms=lib,
                bound_ms=max(tb, tf), bound_by="bytes" if tb >= tf
                else "operations")
     print("K3", json.dumps(rec), flush=True)
@@ -208,34 +388,45 @@ def check_k3(torch, rng, nf, p, s, dtype):
 
 
 # ---------------------------------------------------------------------------
-# phases 4-6: the solver
+# phases 4-7: the solver
 # ---------------------------------------------------------------------------
+
+def _wrappers():
+    from strumpack_tpu_torch.ops.extend_add import extend_add
+    from strumpack_tpu_torch.ops.front_lu import factor_bucket, partial_factor
+    from strumpack_tpu_torch.ops.panel_lu import panel_lu
+    return dict(extend_add=extend_add, front_lu_cross=partial_factor,
+                small_lu=factor_bucket, panel_lu=panel_lu)
+
 
 def reset_counts():
     from strumpack_tpu_torch.frontal import numeric
-    from strumpack_tpu_torch.ops.extend_add import extend_add
-    from strumpack_tpu_torch.ops.front_lu import partial_factor
-    extend_add.launches = 0
-    partial_factor.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
     for k in numeric.route_counts:
         numeric.route_counts[k] = 0
 
 
 def read_counts():
     from strumpack_tpu_torch.frontal import numeric
-    from strumpack_tpu_torch.ops.extend_add import extend_add
-    from strumpack_tpu_torch.ops.front_lu import partial_factor
-    return dict(extend_add=extend_add.launches,
-                front_lu_cross=partial_factor.launches,
-                routes=dict(numeric.route_counts))
+    out = {name: fn.launches for name, fn in _wrappers().items()}
+    out["routes"] = dict(numeric.route_counts)
+    return out
 
 
-def make_solver(nx, dtype, rel_tol):
+def make_solver(nx, dtype, rel_tol, blr=False):
+    """bench.py's _build: exact LU + refinement, or with ``blr`` BLR fronts
+    (separators >= 128, tiles at rel_tol 1e-4) + preconditioned GMRES."""
     import strumpack_tpu_torch as st
     from strumpack_tpu_torch.sparse.gen import poisson3d
     A = poisson3d(nx)
     opts = st.SPOptions(factor_dtype=dtype, refine_dtype=dtype,
                         krylov_solver=st.KrylovSolver.REFINE, nd_leaf=16)
+    if blr:
+        opts.krylov_solver = st.KrylovSolver.PREC_GMRES
+        opts.compression = st.CompressionType.BLR
+        opts.compression_min_sep_size = 128
+        opts.blr.rel_tol = 1e-4
     if rel_tol is not None:
         opts.rel_tol = rel_tol
     s = st.SparseSolver(opts)
@@ -245,8 +436,18 @@ def make_solver(nx, dtype, rel_tol):
     return A, s, time.perf_counter() - t0
 
 
+# kernel wrapper -> the plan's launches of one factorization
+PLAN_LAUNCHES = dict(extend_add="ea_pairs", front_lu_cross="k3_buckets",
+                     small_lu="k2_launches", panel_lu="k4_launches")
+
+
 def run_solver(torch, name, A, s, t_reorder, seed, res_tol=None,
-               scaled_tol=None, memory=False, profile=False):
+               scaled_tol=None, memory=False, profile=False,
+               launched=("extend_add", "front_lu_cross"), peak_check=True):
+    """Factor and solve once with the launch counters zeroed, check the
+    counts against the plan and the result against the limits, then time
+    3 steady factor + solve pairs.  ``launched``: the kernels this path
+    must have launched at least once."""
     import strumpack_tpu_torch as st
     from strumpack_tpu_torch.frontal import numeric
     plan, pdev = s.plan, s.pdev
@@ -261,21 +462,21 @@ def run_solver(torch, name, A, s, t_reorder, seed, res_tol=None,
     t0 = time.perf_counter()
     check(s.factor() == st.ReturnCode.SUCCESS, f"{name} factor")
     t_first = time.perf_counter() - t0
+    passes = s.factor_passes
     if memory:
         peak = torch.cuda.max_memory_allocated() - base
     t0 = time.perf_counter()
     x, rc = s.solve(b)
     t_solve = time.perf_counter() - t0
     counts = read_counts()
-    check(counts["extend_add"] == pdev.ea_pairs(),
-          f"{name}: K1 launches {counts['extend_add']} == plan pairs "
-          f"{pdev.ea_pairs()}")
-    check(counts["front_lu_cross"] == pdev.k3_buckets(),
-          f"{name}: K3 launches {counts['front_lu_cross']} == K3 buckets "
-          f"{pdev.k3_buckets()}")
-    check(counts["extend_add"] > 0 and counts["front_lu_cross"] > 0,
-          f"{name}: both kernels launched")
-    check(sum(counts["routes"].values()) == nb, f"{name}: every bucket routed")
+    want = {k: getattr(pdev, fn)() for k, fn in PLAN_LAUNCHES.items()}
+    for k, n in want.items():
+        check(counts[k] == n * passes,
+              f"{name}: {k} launches {counts[k]} == plan {n} x {passes}")
+    for k in launched:
+        check(counts[k] > 0, f"{name}: {k} launched")
+    check(sum(counts["routes"].values()) == nb * passes,
+          f"{name}: every bucket routed")
     check(rc == st.ReturnCode.SUCCESS, f"{name}: solve returned {rc}")
     check(bool(np.isfinite(x).all()) and x.shape == (A.n,),
           f"{name}: finite solution of shape ({A.n},)")
@@ -286,6 +487,7 @@ def run_solver(torch, name, A, s, t_reorder, seed, res_tol=None,
         check(res <= res_tol, f"{name}: host relative residual {res:.3g}")
     if scaled_tol is not None:
         check(scaled <= scaled_tol, f"{name}: max scaled residual {scaled:.3g}")
+    its = s.Krylov_iterations()
     # steady state: the same plan factored and solved again, 3 times
     steady, steady_solve = [], []
     for _ in range(3):
@@ -298,26 +500,34 @@ def run_solver(torch, name, A, s, t_reorder, seed, res_tol=None,
         s.solve(b)
         steady_solve.append(time.perf_counter() - t0)
     t_steady = float(np.median(steady))
-    rec = dict(phase=name, n=A.n, buckets=nb, k1_pairs=pdev.ea_pairs(),
-               k3_buckets=pdev.k3_buckets(), launches=counts,
+    rec = dict(phase=name, n=A.n, buckets=nb, plan_launches=want,
+               factor_passes=passes, launches=counts,
                factor_nnz=plan.factor_nnz, factor_flops=plan.factor_flops,
                reorder_s=t_reorder, factor_first_s=t_first,
                factor_steady_s=t_steady, factor_steady_all_s=steady,
                factor_gflops=plan.factor_flops / t_steady / 1e9,
                solve_first_s=t_solve,
                solve_steady_s=float(np.median(steady_solve)),
-               ir_its=s.Krylov_iterations(),
-               achieved_rtol=s.achieved_rtol, host_rel_residual=res,
-               max_scaled_residual=scaled)
+               its=its, achieved_rtol=s.achieved_rtol,
+               host_rel_residual=res, max_scaled_residual=scaled)
+    if s.opts.compression != st.CompressionType.NONE:
+        itemsize = np.dtype(s.opts.factor_dtype).itemsize
+        rec.update(max_rank=s.fac.max_rank(),
+                   effective_factor_flops=s.fac.effective_factor_flops(),
+                   factor_bytes_effective=s.fac.factor_memory(),
+                   factor_bytes_allocated=s.fac.factor_memory(False),
+                   dense_factor_bytes=plan.factor_nnz * itemsize)
     if memory:
         itemsize = np.dtype(s.opts.factor_dtype).itemsize
         rec["peak_bytes"] = int(peak)
         rec["factor_peak_bytes_model"] = numeric.factor_peak_bytes(
             pdev, itemsize)
         rec["factor_bytes"] = s.fac.factor_memory()
-        # the analytic model is the capacity planner's upper bound
-        check(peak <= rec["factor_peak_bytes_model"],
-              f"{name}: peak {peak} bytes within the factor_peak_bytes model")
+        if peak_check:
+            # the analytic model is the capacity planner's upper bound
+            check(peak <= rec["factor_peak_bytes_model"],
+                  f"{name}: peak {peak} bytes within the factor_peak_bytes "
+                  "model")
     if profile:
         rec["profile"] = profile_factor(torch, s, b)
     print(name, json.dumps(rec), flush=True)
@@ -328,6 +538,8 @@ def run_solver(torch, name, A, s, t_reorder, seed, res_tol=None,
 KERNEL_GROUPS = (
     ("K1 extend_add", ("extend_add_kernel",)),
     ("K3 lu_cross", ("lu_cross_kernel",)),
+    ("K2 small_lu", ("small_lu_kernel",)),
+    ("K4 panel_lu", ("panel_lu_kernel",)),
     ("library LU (getrf, pivots)", ("getrf", "getf2", "laswp", "swap",
                                     "pivinfo", "computecolumn",
                                     "displace_pointers", "iamax")),
@@ -335,6 +547,16 @@ KERNEL_GROUPS = (
     ("GEMM (Schur, solve)", ("gemm", "xmma", "cutlass")),
 )
 PROFILER_OVERHEAD = ("Activity Buffer Request", "Buffer Flush")
+
+
+def _inside(ev, name):
+    """Whether a profiler event runs inside a range called ``name``."""
+    p = ev.cpu_parent
+    while p is not None:
+        if p.name == name:
+            return True
+        p = p.cpu_parent
+    return False
 
 
 def profile_factor(torch, s, b):
@@ -353,12 +575,23 @@ def profile_factor(torch, s, b):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
+    rrqr_ms = span_ms = 0.0
+    t0 = time.perf_counter()
     for ev in prof.key_averages():
         dev = getattr(ev, "self_device_time_total",
                       getattr(ev, "self_cuda_time_total", 0))
-        if (dev > 0 and ev.device_type == DeviceType.CUDA
+        if ev.key == "rrqr":
+            # the range around ops/rrqr.rrqr: its device row is the span
+            # of the device timeline inside the range, idle gaps included
+            span_ms = max(span_ms, dev / 1e3)
+        elif (dev > 0 and ev.device_type == DeviceType.CUDA
                 and ev.key not in PROFILER_OVERHEAD):
             rows.append((dev / 1e3, ev.count, ev.key))
+    # the RRQR group: kernels launched by ops inside the "rrqr" range
+    for ev in prof.events():
+        if ev.kernels and _inside(ev, "rrqr"):
+            rrqr_ms += sum(k.duration for k in ev.kernels) / 1e3
+    print(f"profile: trace read in {time.perf_counter() - t0:.1f} s")
     if not rows:
         print("profile: no device time in the trace (not measured)")
         return None
@@ -375,9 +608,14 @@ def profile_factor(torch, s, b):
           f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% of wall)")
     for name, ms in groups.items():
         print(f"profile: group {ms:9.2f} ms {100 * ms / busy:5.1f}%  {name}")
+    if rrqr_ms:
+        print(f"profile: group {rrqr_ms:9.2f} ms {100 * rrqr_ms / busy:5.1f}%"
+              "  RRQR tile compression (its kernels, also counted above); "
+              f"device timeline inside it {span_ms:.1f} ms")
     for ms, count, key in rows[:12]:
         print(f"profile: {ms:9.2f} ms {count:6d}x {key[:90]}")
-    return dict(wall_ms=wall * 1e3, kernel_ms=busy, groups=groups)
+    return dict(wall_ms=wall * 1e3, kernel_ms=busy, groups=groups,
+                rrqr_ms=rrqr_ms, rrqr_span_ms=span_ms)
 
 
 def main():
@@ -414,6 +652,19 @@ def main():
     k3 = [check_k3(torch, rng, nf, p, s, "float32")
           for nf, p, s in ((8192, 48, 16), (4096, 80, 16), (1024, 216, 24))]
     k3.append(check_k3(torch, rng, 4096, 80, 16, "float64"))
+    # K2 at the blr50 shapes: the s = 4 dense bucket and the 64 x 64 tiles
+    k2 = [check_k2(torch, rng, 2048, 52, 4, "float32"),
+          check_k2(torch, rng, 16, 64, 64, "float32"),
+          check_k2(torch, rng, 16, 64, 64, "float32", pivot=False),
+          check_k2(torch, rng, 2048, 52, 4, "float64")]
+    # K4 at the blr50 tile panels (t = 96, and both 128-wide panels of
+    # t = 256), f64 at t = 256 and a tall panel (the global variant)
+    k4 = [check_k4(torch, rng, 64, 96, 96, 0, "float32", "shared"),
+          check_k4(torch, rng, 8, 256, 128, 0, "float32", "shared"),
+          check_k4(torch, rng, 8, 256, 128, 128, "float32", "shared"),
+          check_k4(torch, rng, 8, 256, 128, 0, "float64", "global"),
+          check_k4(torch, rng, 4, 2048, 128, 0, "float32", "global")]
+    blocked = check_blocked(torch, rng, 8, 256, "float32")
     torch.cuda.empty_cache()
 
     phase("4 exact32")
@@ -433,13 +684,24 @@ def main():
     Ad, sd, t_reorderd = make_solver(32, "float64", None)
     run_solver(torch, "f64_32", Ad, sd, t_reorderd, seed=3,
                scaled_tol=1e-10)
+    del Ad, sd
+    torch.cuda.empty_cache()
 
-    phase("7 summary")
+    phase("7 blr50")
+    A50, s50, t_reorder50 = make_solver(50, "float32", 1e-4, blr=True)
+    blr_run = run_solver(torch, "blr50", A50, s50, t_reorder50, seed=50,
+                         res_tol=1e-3, memory=True, profile=True,
+                         launched=tuple(PLAN_LAUNCHES), peak_check=False)
+    del A50, s50
+    torch.cuda.empty_cache()
 
-    def entry(name, src, replaces, key, recs):
+    phase("8 summary")
+    print("K4-blocked", json.dumps(blocked))
+
+    def entry(name, src, replaces, run, key, recs):
         return dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=main_run["launches"][key],
+            launches=run["launches"][key], launches_from=run["phase"],
             max_abs_err=max(r["max_abs_err"] for r in recs),
             ms=sum(r["ms"] for r in recs),
             plain_ms=sum(r["plain_ms"] for r in recs),
@@ -452,9 +714,16 @@ def main():
 
     kernels = [
         entry("extend_add", "strumpack_tpu_torch/csrc/extend_add.cu",
-              "strumpack_tpu/ops/pallas_extadd.py:204", "extend_add", k1),
+              "strumpack_tpu/ops/pallas_extadd.py:204", main_run,
+              "extend_add", k1),
         entry("front_lu_cross", "strumpack_tpu_torch/csrc/front_lu.cu",
-              "strumpack_tpu/ops/pallas_lu.py:286", "front_lu_cross", k3),
+              "strumpack_tpu/ops/pallas_lu.py:286", main_run,
+              "front_lu_cross", k3),
+        entry("small_lu", "strumpack_tpu_torch/csrc/small_lu.cu",
+              "strumpack_tpu/ops/pallas_lu.py:102", blr_run, "small_lu", k2),
+        entry("panel_lu", "strumpack_tpu_torch/csrc/panel_lu.cu",
+              "strumpack_tpu/ops/pallas_panel_lu.py:110", blr_run,
+              "panel_lu", k4),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -16,7 +16,8 @@
 //
 // Per column k < s:
 //   * pivot: max |A[i, k]| over rows i in [k, s) only (never a CB row),
-//     lowest index among ties -- warp 0 reduces;
+//     lowest index among ties -- warp 0 reduces (row k itself when
+//     pivoting is off);
 //   * physical swap of rows k and r in A, B and the permutation;
 //   * tiny-pivot replacement during the elimination: |piv| < thresh ->
 //     thresh (piv == 0) or copysign(thresh, piv);
@@ -50,7 +51,8 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 lu_cross_kernel(const T* __restrict__ F, T* __restrict__ lu,
                 T* __restrict__ L21, T* __restrict__ U12,
-                int64_t* __restrict__ perm, int p, int s, T thresh) {
+                int64_t* __restrict__ perm, int p, int s, T thresh,
+                int pivot) {
   extern __shared__ unsigned char smem_raw[];
   const int u = p - s;
   T* A = reinterpret_cast<T*>(smem_raw);           // [p][s]
@@ -73,7 +75,9 @@ lu_cross_kernel(const T* __restrict__ F, T* __restrict__ lu,
   __syncthreads();
 
   for (int k = 0; k < s; ++k) {
-    if (tid < 32) {
+    if (!pivot) {
+      if (tid == 0) s_piv = k;
+    } else if (tid < 32) {
       T best = T(-1);
       int bi = s;
       for (int i = k + tid; i < s; i += 32) {
@@ -137,7 +141,8 @@ size_t smem_bytes(int p, int s) {
 
 template <typename T>
 int launch(const void* F, void* lu, void* L21, void* U12, void* perm,
-           int64_t nf, int p, int s, double thresh, void* stream) {
+           int64_t nf, int p, int s, double thresh, int pivot,
+           void* stream) {
   if (nf == 0 || s == 0) return 0;
   const size_t smem = smem_bytes<T>(p, s);
   cudaError_t err = cudaFuncSetAttribute(
@@ -146,7 +151,7 @@ int launch(const void* F, void* lu, void* L21, void* U12, void* perm,
   if (err != cudaSuccess) return (int)err;
   lu_cross_kernel<T><<<(unsigned)nf, THREADS, smem, (cudaStream_t)stream>>>(
       (const T*)F, (T*)lu, (T*)L21, (T*)U12, (int64_t*)perm, p, s,
-      (T)thresh);
+      (T)thresh, pivot);
   return (int)cudaGetLastError();
 }
 
@@ -155,13 +160,17 @@ int launch(const void* F, void* lu, void* L21, void* U12, void* perm,
 extern "C" {
 
 int lu_cross_f32(const void* F, void* lu, void* L21, void* U12, void* perm,
-                 int64_t nf, int p, int s, double thresh, void* stream) {
-  return launch<float>(F, lu, L21, U12, perm, nf, p, s, thresh, stream);
+                 int64_t nf, int p, int s, double thresh, int pivot,
+                 void* stream) {
+  return launch<float>(F, lu, L21, U12, perm, nf, p, s, thresh, pivot,
+                       stream);
 }
 
 int lu_cross_f64(const void* F, void* lu, void* L21, void* U12, void* perm,
-                 int64_t nf, int p, int s, double thresh, void* stream) {
-  return launch<double>(F, lu, L21, U12, perm, nf, p, s, thresh, stream);
+                 int64_t nf, int p, int s, double thresh, int pivot,
+                 void* stream) {
+  return launch<double>(F, lu, L21, U12, perm, nf, p, s, thresh, pivot,
+                        stream);
 }
 
 const char* front_lu_error_string(int err) {

@@ -16,10 +16,13 @@ uniform shapes.
   CSR values, so ``update_matrix_values`` reuses the entire plan
   (the reference's structure-reuse feature, StrumpackSparseSolver.hpp:196).
 
-This is the dense-front part of ``strumpack_tpu/frontal/plan.py``: the plan
-arrays are identical to that module's for ``CompressionType.NONE``.
-Compressed front types (BLR, HSS, HODLR, HODBF, lossy), nf-chunked buckets
-and the distributed plan build are not part of this package yet.
+This is the dense-front and BLR part of ``strumpack_tpu/frontal/plan.py``:
+the plan arrays are identical to that module's for ``CompressionType.NONE``
+and ``CompressionType.BLR`` (tile size, rank cap and admissibility chosen
+per bucket, the FrontFactory role).  The other compressed front types
+(HSS, HODLR, HODBF, lossy), BLR-compressed contribution blocks,
+nf-chunked buckets and the distributed plan build are not part of this
+package yet.
 """
 from __future__ import annotations
 
@@ -85,6 +88,13 @@ class BucketPlan:
     # child with a nonempty update set
     hasL: np.ndarray = None      # [nf] bool
     hasR: np.ndarray = None      # [nf] bool
+    # BLR front type (FrontFactory role: per-bucket front selection)
+    blr: bool = False
+    tile: int = 0                # BLR tile size t
+    max_rank: int = 0            # BLR fixed max rank r
+    adm_band: int = 0            # 0 = weak admissibility, 1 = strong
+    blr_variant: str = "rl"      # "rl" eager / "ll" LUAR-accumulated
+    lr_algo: str = "rrqr"        # tile compressor (LowRankAlgorithm role)
 
     @property
     def nf(self) -> int:
@@ -119,16 +129,44 @@ class LevelPlan:
         return len(self.levels)
 
 
+def _assign_bucket_compression(bp: BucketPlan, compression) -> None:
+    """Per-bucket front-type selection (FrontFactory role,
+    FrontFactory.hpp:84-133) for ``CompressionType.BLR``: buckets whose
+    padded separator reaches ``compression_min_sep_size`` become BLR
+    fronts with a tile size, a rank cap, an admissibility, an update
+    schedule and a tile compressor."""
+    if compression is None:
+        return
+    from ..options import CompressionType as CT
+    comp = compression.compression
+    if comp == CT.NONE:
+        return
+    if comp != CT.BLR:
+        raise NotImplementedError(
+            f"compression {comp.name}: only dense and BLR fronts are ported")
+    if getattr(compression.blr, "cb_compression", False):
+        raise NotImplementedError("BLR-compressed contribution blocks "
+                                  "(cb_compression) are not ported yet")
+    sp, up = bp.s_pad, bp.u_pad
+    if sp < compression.compression_min_sep_size:
+        return
+    from .blr import choose_tile
+    bp.blr = True
+    bp.tile = choose_tile(sp, up, compression.blr.leaf_size)
+    bp.max_rank = max(4, min(compression.blr.max_rank, bp.tile // 2))
+    if getattr(compression.blr, "admissibility", "weak") == "strong":
+        bp.adm_band = 1
+    bp.blr_variant = getattr(compression.blr, "factor_algorithm", "rl")
+    bp.lr_algo = getattr(compression.blr, "low_rank_algorithm", "rrqr")
+
+
 def build_plan(Ap: CSRMatrix, tree: SeparatorTree,
-               upd: list[np.ndarray], compression=None) -> LevelPlan:
-    """compression: None or an SPOptions-like object; only
-    ``CompressionType.NONE`` (dense fronts) is supported here."""
-    if compression is not None:
-        from ..options import CompressionType
-        if compression.compression != CompressionType.NONE:
-            raise NotImplementedError(
-                f"compression {compression.compression.name}: only dense "
-                "fronts (CompressionType.NONE) are ported")
+               upd: list[np.ndarray], compression=None,
+               hbm_bytes=None) -> LevelPlan:
+    """compression: None or an SPOptions-like object with fields
+    ``compression`` (CompressionType), ``compression_min_sep_size`` and
+    ``blr`` (BLROptions).  ``hbm_bytes``: the device memory the rank-cap
+    pass plans for (``numeric.hbm_budget_bytes``)."""
     n, nnz = Ap.n, Ap.nnz
     nseps = tree.nseps
     depths = tree.depths()
@@ -200,6 +238,7 @@ def build_plan(Ap: CSRMatrix, tree: SeparatorTree,
                             u_pad=int(u_pad_all[sel[0]]),
                             fronts=sel, ds=ds_b, du=du_b)
             sp, up, p = bp.s_pad, bp.u_pad, bp.p
+            _assign_bucket_compression(bp, compression)
             # structural child-presence flags (see BucketPlan.hasL doc)
             for side, cha in (("L", tree.lch), ("R", tree.rch)):
                 chb = np.full(nf, -1, dtype=np.int64)
@@ -280,6 +319,25 @@ def build_plan(Ap: CSRMatrix, tree: SeparatorTree,
         plan.levels.append(level_buckets)
         plan.cb_sizes.append(cb_total)
         plan.cbv_sizes.append(cbv_total)
+
+    # ---- generous initial rank caps (skip the adaptive restart) ---------
+    # Start BLR buckets at the caps the adaptive-rank restart would
+    # converge to (the tile size, never above an explicit user cap) when
+    # that uncapped storage fits in a quarter of the device memory, as the
+    # JAX package does (plan.py:607-636); saturation then cannot trigger.
+    if any(bp.blr for lvl in plan.levels for bp in lvl):
+        from .numeric import hbm_budget_bytes, static_factor_bytes
+        saved = [bp.max_rank for lvl in plan.levels for bp in lvl]
+        for lvl in plan.levels:
+            for bp in lvl:
+                if bp.blr:
+                    bp.max_rank = min(bp.tile, compression.blr.max_rank)
+        budget = hbm_budget_bytes(None) if hbm_bytes is None else hbm_bytes
+        if static_factor_bytes(plan) > 0.25 * budget:
+            it = iter(saved)
+            for lvl in plan.levels:
+                for bp in lvl:
+                    bp.max_rank = next(it)
 
     # ---- stats ----------------------------------------------------------
     from ..sparse.symbolic import factor_flops, factor_nonzeros

@@ -19,7 +19,7 @@ SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-KERNEL_SOURCES = ("extend_add", "front_lu")
+KERNEL_SOURCES = ("extend_add", "front_lu", "small_lu", "panel_lu")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

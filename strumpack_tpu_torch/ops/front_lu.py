@@ -1,7 +1,13 @@
 """Batched partial LU of identity-padded fronts.
 
-Two routes, chosen by shape alone (``frontal/numeric.py::_factor_bucket``):
+Three routes, chosen by shape alone (``frontal/numeric.py::_factor_bucket``):
 
+* **K2**, the small-front kernel (``factor_bucket``), replacing
+  ``strumpack_tpu/ops/pallas_lu.py`` (``pallas_factor_bucket`` ->
+  ``_lu_kernel``) for fronts with p <= 64: the whole front, CB included,
+  eliminated in one pass with logical partial pivoting.  The CUDA kernel
+  is ``csrc/small_lu.cu``; ``factor_bucket_plain`` is its plain version.
+  ``batched_lu`` (``ops/panel_lu.py``) also sends BLR tiles up to 64 here.
 * **K3**, the cross-shape kernel (``partial_factor``), replacing
   ``strumpack_tpu/ops/pallas_lu.py`` (``pallas_partial_factor`` ->
   ``_lu_cross_kernel``).  The CUDA kernel is ``csrc/front_lu.cu``; its note
@@ -12,12 +18,13 @@ Two routes, chosen by shape alone (``frontal/numeric.py::_factor_bucket``):
   ``solve_triangular`` and ``matmul``, the counterpart of the XLA path of
   ``strumpack_tpu/frontal/numeric.py:481-496``.
 
-Both return ``(lu [nf,s,s], perm [nf,s], L21 [nf,u,s], U12 [nf,s,u],
-CB [nf,u,u])`` with ``perm`` in applied form (``perm[i]`` = source row of
-row i, int64) — the ``_factor_bucket`` contract.  The two routes keep the
-JAX package's two tiny-pivot rules: K3 replaces a tiny pivot *during* the
-elimination, the library route replaces tiny diagonal entries of U *after*
-the LU.
+K3 and the library route return ``(lu [nf,s,s], perm [nf,s], L21
+[nf,u,s], U12 [nf,s,u], CB [nf,u,u])`` with ``perm`` in applied form
+(``perm[i]`` = source row of row i, int64) — the ``_factor_bucket``
+contract; K2 returns the same pieces packed in one ``[nf,p,p]`` tensor
+(``unpack_factors``).  The routes keep the JAX package's two tiny-pivot
+rules: K2 and K3 replace a tiny pivot *during* the elimination, the
+library route replaces tiny diagonal entries of U *after* the LU.
 """
 from __future__ import annotations
 
@@ -32,7 +39,7 @@ from . import _build
 # derived for the TPU's VMEM and lanes; re-deriving them for Hopper's
 # 227 KB of shared memory is queued.
 _LANES = 128
-MAX_PALLAS_P = 64           # K2's limit (K2 is not ported yet)
+MAX_PALLAS_P = 64           # K2's limit
 MAX_CROSS_P = 128
 MAX_CROSS_WIDE_P = 640
 MIN_CROSS_WIDE_NF = 32
@@ -42,7 +49,129 @@ SMEM_LIMIT = 232448         # H100 dynamic shared memory per block (227 KB)
 _FN = {torch.float32: "lu_cross_f32", torch.float64: "lu_cross_f64"}
 _SIG = (ctypes.c_int, [ctypes.c_void_p] * 5 + [
     ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_double,
-    ctypes.c_void_p])
+    ctypes.c_int, ctypes.c_void_p])
+_FN2 = {torch.float32: "small_lu_f32", torch.float64: "small_lu_f64"}
+_SIG2 = (ctypes.c_int, [ctypes.c_void_p] * 3 + [
+    ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+    ctypes.c_int, ctypes.c_void_p])
+
+
+def _replace_tiny(piv, th):
+    """The tiny-pivot rule of both kernels: |piv| < thresh -> thresh
+    (piv == 0) or sign(piv) * thresh (SparseSolverBase.cpp:346-350)."""
+    return torch.where(piv.abs() < th,
+                       torch.where(piv == 0, th, torch.sign(piv) * th), piv)
+
+
+def _check_kernel_input(F, what):
+    if F.device.type != "cuda":
+        raise NotImplementedError(f"{what} on {F.device.type}")
+    if F.dtype not in _FN:
+        raise NotImplementedError(f"{what} kernel: dtype {F.dtype}")
+    if not F.is_contiguous():
+        raise ValueError(f"{what}: F must be contiguous")
+
+
+# ---------------------------------------------------------------------------
+# K2: small-front LU
+# ---------------------------------------------------------------------------
+
+def factor_bucket_plain(F, thresh, s_pad, pivot=True):
+    """Plain PyTorch version of K2: the same elimination of the whole
+    front, column by column, batched over fronts.  Pivot rows are marked
+    (logical pivoting), never moved; one row gather triangularizes at the
+    end.  Every row is updated with its multiplier (0 for rows already
+    pivoted), as a separately rounded multiply and subtract."""
+    nf, p, _ = F.shape
+    G = F.clone()
+    dev = F.device
+    rows = torch.arange(p, device=dev)
+    alive = rows < s_pad
+    free = torch.ones((nf, p), dtype=torch.bool, device=dev)
+    pr = torch.empty((nf, s_pad), dtype=torch.int64, device=dev)
+    th = torch.tensor(thresh, dtype=F.dtype, device=dev)
+    ar = torch.arange(nf, device=dev)
+    for k in range(s_pad):
+        colk = G[:, :, k].clone()                            # [nf, p]
+        if pivot:
+            # lowest index among ties: torch.argmax returns the first
+            cand = torch.where(alive & free, colk.abs(), -1.0)
+            r = torch.argmax(cand, dim=1)                     # [nf]
+        else:
+            r = torch.full((nf,), k, dtype=torch.int64, device=dev)
+        piv = _replace_tiny(colk[ar, r], th)
+        ispiv = rows[None, :] == r[:, None]                   # [nf, p]
+        m = torch.where(free & ~ispiv, colk / piv[:, None], 0.0)
+        urow = G[ar, r, k + 1:]                              # [nf, p-k-1]
+        G[:, :, k + 1:] -= m[:, :, None] * urow[:, None, :]
+        G[:, :, k] = torch.where(ispiv, piv[:, None],
+                                 torch.where(free, m, colk))
+        pr[:, k] = r
+        free &= ~ispiv
+    tail = torch.arange(s_pad, p, device=dev).expand(nf, p - s_pad)
+    pj = torch.cat([pr, tail], dim=1)
+    return torch.gather(G, 1, pj[:, :, None].expand(nf, p, p)), pr
+
+
+def factor_bucket(F, thresh, s_pad, pivot=True):
+    """K2: batched elimination of the ``s_pad`` leading columns of the
+    fronts F [nf, p, p], p <= 64, CB included.  Returns (packed [nf,p,p],
+    perm [nf,s_pad]): packed[:s,:s] = L\\U of P F11, [:s,s:] = U12,
+    [s:,:s] = L21, [s:,s:] = CB (``unpack_factors``).  CPU tensors take the
+    plain version; CUDA tensors launch the kernel (``factor_bucket.launches``
+    counts launches)."""
+    if F.device.type == "cpu":
+        return factor_bucket_plain(F, thresh, s_pad, pivot)
+    _check_kernel_input(F, "factor_bucket")
+    nf, p, p2 = F.shape
+    if p != p2 or not 0 < s_pad <= p or p > MAX_PALLAS_P:
+        raise ValueError(f"factor_bucket: F{tuple(F.shape)}, s={s_pad} "
+                         f"(the kernel takes 0 < s <= p <= {MAX_PALLAS_P})")
+    packed = torch.empty_like(F)
+    perm = torch.empty((nf, s_pad), dtype=torch.int64, device=F.device)
+    lib = _build.load("small_lu", {fn: _SIG2 for fn in _FN2.values()})
+    stream = torch.cuda.current_stream(F.device).cuda_stream
+    err = getattr(lib, _FN2[F.dtype])(
+        F.data_ptr(), packed.data_ptr(), perm.data_ptr(), nf, p, s_pad,
+        float(thresh), int(bool(pivot)), stream)
+    _build.check(lib, "small_lu", err)
+    factor_bucket.launches += 1
+    return packed, perm
+
+
+factor_bucket.launches = 0
+
+
+def unpack_factors(packed, s_pad):
+    """Split a packed K2 output into (lu, L21, U12, CB)."""
+    s = s_pad
+    return (packed[:, :s, :s], packed[:, s:, :s], packed[:, :s, s:],
+            packed[:, s:, s:])
+
+
+def nopivot_factor_bucket(F, thresh, s_pad):
+    """Elimination without pivoting in plain PyTorch, any device and
+    dtype (the counterpart of ``nopivot_factor_bucket_xla``): the route of
+    fronts too wide for K2 when pivoting is off.  Same packed output as
+    K2."""
+    G = F.clone()
+    th = torch.as_tensor(thresh, dtype=F.real.dtype if F.is_complex()
+                         else F.dtype, device=F.device)
+    for k in range(s_pad):
+        piv = G[:, k, k].clone()
+        apiv = piv.abs()
+        sgn = torch.where(piv == 0, torch.ones_like(piv),
+                          piv / torch.where(apiv == 0, 1, apiv))
+        piv = torch.where(apiv < th, sgn * th, piv)
+        G[:, k + 1:, k] /= piv[:, None]
+        G[:, k + 1:, k + 1:] -= G[:, k + 1:, k, None] * G[:, k, None, k + 1:]
+        G[:, k, k] = piv
+    return G
+
+
+# ---------------------------------------------------------------------------
+# K3: cross-shape partial LU
+# ---------------------------------------------------------------------------
 
 
 def _cross_bb(p, s, u, nf):
@@ -83,10 +212,11 @@ def _schur(F, L21, U12, s):
     return torch.baddbmm(F[:, s:, s:], L21, U12, alpha=-1)
 
 
-def partial_factor_plain(F, thresh, s):
+def partial_factor_plain(F, thresh, s, pivot=True):
     """Plain PyTorch version of K3: the same elimination, column by column,
     batched over fronts, with the same operation order and rounding
-    (separate multiply and subtract)."""
+    (separate multiply and subtract).  ``pivot=False`` eliminates on the
+    diagonal."""
     nf, p, _ = F.shape
     A = F[:, :, :s].clone()                                  # [nf, p, s]
     B = F[:, :s, s:].clone()                                 # [nf, s, u]
@@ -94,17 +224,15 @@ def partial_factor_plain(F, thresh, s):
     th = torch.tensor(thresh, dtype=F.dtype, device=F.device)
     ar = torch.arange(nf, device=F.device)
     for k in range(s):
-        # lowest index among ties: torch.argmax returns the first maximum
-        r = k + torch.argmax(A[:, k:s, k].abs(), dim=1)      # [nf]
-        rows = torch.stack([torch.full_like(r, k), r], 1)    # [nf, 2]
-        swapped = rows.flip(1)
-        A[ar[:, None], rows] = A[ar[:, None], swapped]
-        B[ar[:, None], rows] = B[ar[:, None], swapped]
-        P[ar[:, None], rows] = P[ar[:, None], swapped]
-        piv = A[:, k, k]
-        piv = torch.where(piv.abs() < th,
-                          torch.where(piv == 0, th, torch.sign(piv) * th),
-                          piv)
+        if pivot:
+            # lowest index among ties: torch.argmax returns the first
+            r = k + torch.argmax(A[:, k:s, k].abs(), dim=1)  # [nf]
+            rows = torch.stack([torch.full_like(r, k), r], 1)  # [nf, 2]
+            swapped = rows.flip(1)
+            A[ar[:, None], rows] = A[ar[:, None], swapped]
+            B[ar[:, None], rows] = B[ar[:, None], swapped]
+            P[ar[:, None], rows] = P[ar[:, None], swapped]
+        piv = _replace_tiny(A[:, k, k], th)
         A[:, k, k] = piv
         A[:, k + 1:, k] = A[:, k + 1:, k] / piv[:, None]
         m = A[:, k + 1:, k]                                  # [nf, p-k-1]
@@ -114,18 +242,15 @@ def partial_factor_plain(F, thresh, s):
     return A[:, :s, :].contiguous(), P, L21, B, _schur(F, L21, B, s)
 
 
-def partial_factor(F, thresh, s):
+def partial_factor(F, thresh, s, pivot=True):
     """K3: partial LU of the fronts F [nf, p, p] over their s leading
     columns.  CPU tensors take the plain version; CUDA tensors launch the
     kernel (``partial_factor.launches`` counts launches)."""
     if F.device.type == "cpu":
-        return partial_factor_plain(F, thresh, s)
-    if F.device.type != "cuda":
-        raise NotImplementedError(f"partial_factor on {F.device.type}")
-    if F.dtype not in _FN:
-        raise NotImplementedError(f"front LU kernel: dtype {F.dtype}")
+        return partial_factor_plain(F, thresh, s, pivot)
+    _check_kernel_input(F, "partial_factor")
     nf, p, p2 = F.shape
-    if p != p2 or not 0 < s < p or not F.is_contiguous():
+    if p != p2 or not 0 < s < p:
         raise ValueError(f"partial_factor: F{tuple(F.shape)}, s={s}")
     smem = smem_bytes(p, s, F.element_size())
     if smem > SMEM_LIMIT:
@@ -140,7 +265,7 @@ def partial_factor(F, thresh, s):
     stream = torch.cuda.current_stream(F.device).cuda_stream
     err = getattr(lib, _FN[F.dtype])(
         F.data_ptr(), lu.data_ptr(), L21.data_ptr(), U12.data_ptr(),
-        perm.data_ptr(), nf, p, s, float(thresh), stream)
+        perm.data_ptr(), nf, p, s, float(thresh), int(bool(pivot)), stream)
     _build.check(lib, "front_lu", err)
     partial_factor.launches += 1
     return lu, perm, L21, U12, _schur(F, L21, U12, s)
@@ -158,6 +283,17 @@ def lapack_pivots_to_perm(lu, piv):
     return P.argmax(dim=-2)
 
 
+def replace_tiny_diagonal(lu, thresh):
+    """The library route's tiny-pivot rule, in place: diagonal entries of
+    U below ``thresh`` become thresh (zero) or sign * thresh, after the
+    LU (``strumpack_tpu/frontal/numeric.py:483-489``)."""
+    d = torch.diagonal(lu, dim1=-2, dim2=-1)
+    th = torch.tensor(thresh, dtype=d.real.dtype, device=lu.device)
+    sgn = torch.sign(d.real).to(d.dtype)
+    d.copy_(torch.where(d.abs() < th,
+                        torch.where(d == 0, th.to(d.dtype), sgn * th), d))
+
+
 def library_factor(F, thresh, s):
     """Library route: LU of F11 with partial pivoting, tiny diagonal
     entries of U replaced afterwards (``numeric.py:483-489``), then two
@@ -166,11 +302,7 @@ def library_factor(F, thresh, s):
     # replaced below), and no host sync to check for one
     lu, piv, _ = torch.linalg.lu_factor_ex(F[:, :s, :s])
     perm = lapack_pivots_to_perm(lu, piv)
-    d = torch.diagonal(lu, dim1=-2, dim2=-1)
-    th = torch.tensor(thresh, dtype=d.real.dtype, device=F.device)
-    sgn = torch.sign(d.real).to(d.dtype)
-    d.copy_(torch.where(d.abs() < th,
-                        torch.where(d == 0, th.to(d.dtype), sgn * th), d))
+    replace_tiny_diagonal(lu, thresh)
     F12 = torch.gather(F[:, :s, s:], 1,
                        perm[:, :, None].expand(-1, -1, F.shape[2] - s))
     U12 = torch.linalg.solve_triangular(lu, F12, upper=False, left=True,

@@ -3,13 +3,17 @@
 Role of the reference's ``SparseSolverBase`` + ``SparseSolver``
 (SparseSolverBase.cpp:304-721: reorder -> factor -> solve, equilibration,
 rhs transforms, statistics), the counterpart of ``strumpack_tpu/solver.py``
-for the exact multifrontal path:
+for the exact and the BLR multifrontal paths:
 
   reorder():  host — equilibration, pattern symmetrization, geometric nested
-              dissection, symbolic factorization, level/bucket plan
-  factor():   device — level-batched numeric factorization
-  solve():    device — multifrontal solve, directly or inside iterative
-              refinement (``KrylovSolver.REFINE``, also what AUTO means here)
+              dissection (+ separator reordering under compression),
+              symbolic factorization, level/bucket plan
+  factor():   device — level-batched numeric factorization (dense or BLR
+              fronts), with the adaptive-rank restart under compression
+  solve():    device — multifrontal solve, directly, inside iterative
+              refinement or as the preconditioner of GMRES/BiCGStab
+              (AUTO: refinement for exact factors, PREC_GMRES under
+              compression)
 
 The device is CUDA unless the caller asks for another (``device="cpu"``);
 without CUDA and without an explicit device the constructor raises.
@@ -59,6 +63,7 @@ class SparseSolver:
         self.times = {}
         self.its = 0
         self.achieved_rtol = 0.0
+        self.factor_passes = 0   # factorizations of the last factor()
         self._reordered = False
         self._factored = False
 
@@ -66,16 +71,16 @@ class SparseSolver:
     def _check_supported(self):
         opts = self.opts
         unsupported = [
-            (opts.compression != CompressionType.NONE,
+            (opts.compression not in (CompressionType.NONE,
+                                      CompressionType.BLR),
              f"compression {opts.compression.name}"),
+            (opts.blr.cb_compression and
+             opts.compression == CompressionType.BLR,
+             "BLR-compressed contribution blocks"),
             (opts.matching != MatchingJob.NONE,
              f"matching {opts.matching.name}"),
             (opts.positive_definite, "the SPD (Cholesky) path"),
             (not opts.pivoting, "factorization without pivoting"),
-            (opts.krylov_solver not in (KrylovSolver.AUTO,
-                                        KrylovSolver.REFINE,
-                                        KrylovSolver.DIRECT),
-             f"Krylov solver {opts.krylov_solver.name}"),
             (opts.refine_dtype in ("float32x2", "df32"),
              "double-float refinement")]
         for bad, what in unsupported:
@@ -151,15 +156,28 @@ class SparseSolver:
         perm, iperm, tree = geometric_nd(
             opts.nx, opts.ny, opts.nz, components=opts.components,
             width=opts.separator_width, leaf=opts.nd_leaf)
+        if opts.compression != CompressionType.NONE:
+            # separator reordering (MatrixReordering.cpp:159): re-partition
+            # each big separator's graph so BLR tiles are graph clusters;
+            # composed into perm before symbolic factorization
+            from .sparse.ordering.separator_reorder import \
+                separator_reordering
+            A = self.A if self.A.symm_sparse else self.A.symmetrize_sparsity()
+            q = separator_reordering(A.permute(perm, iperm), tree, opts)
+            if q is not None:
+                perm = perm[q]
+                iperm = np.empty_like(perm)
+                iperm[perm] = np.arange(self.A.n)
         self.perm, self.iperm, self.tree = perm, iperm, tree
         self._rescale_and_permute()
 
         # symbolic factorization on the symmetrized permuted pattern
         from .sparse.symbolic import symbolic_factorization
         from .frontal.plan import build_plan
-        from .frontal.numeric import PlanDev
+        from .frontal.numeric import PlanDev, hbm_budget_bytes
         upd = symbolic_factorization(self.Ap, tree)
-        self.plan = build_plan(self.Ap, tree, upd, compression=opts)
+        self.plan = build_plan(self.Ap, tree, upd, compression=opts,
+                               hbm_bytes=hbm_budget_bytes(self.device))
         self.pdev = PlanDev(self.plan, self.device)
         self._reordered = True
         self.times["reorder"] = time.perf_counter() - t0
@@ -190,27 +208,74 @@ class SparseSolver:
             eps = np.finfo(np.dtype(opts.factor_dtype)).eps
             thresh = np.sqrt(eps) * self.Ap.norm1()
         fdt = getattr(torch, np.dtype(opts.factor_dtype).name)
-        self.fac = numeric.factorize(self.pdev, self.Ap.data, thresh=thresh,
-                                     dtype=fdt)
+        itemsize = np.dtype(opts.factor_dtype).itemsize
+        compressed = opts.compression != CompressionType.NONE
+
+        def run_factor():
+            self.factor_passes += 1
+            return numeric.factorize(self.pdev, self.Ap.data, thresh=thresh,
+                                     dtype=fdt, blr_tol=opts.blr.rel_tol,
+                                     pivoting=opts.pivoting)
+
+        self.factor_passes = 0
+        self.fac = run_factor()
+        # adaptive rank control (solver.py:315-353 of the JAX package, the
+        # role of HSSMatrix.compress.hpp:37-100): buckets whose masked
+        # ranks hit their cap get doubled caps and the factorization runs
+        # again, unless doubled storage would pass half the device memory
+        if opts.adaptive_rank and compressed:
+            for _ in range(4):
+                sat = self.fac.saturated_buckets()
+                if not sat:
+                    break
+                proj = 2 * numeric.static_factor_bytes(self.plan, itemsize)
+                if proj > 0.5 * numeric.hbm_budget_bytes(self.device):
+                    if opts.verbose:
+                        print("# adaptive rank restart SKIPPED: doubled "
+                              f"caps would need ~{proj / 1e9:.1f} GB of "
+                              "factor storage")
+                    break
+                grew = False
+                for li, bi in sat:
+                    bp = self.plan.levels[li][bi]
+                    if bp.blr and bp.max_rank < bp.tile:
+                        bp.max_rank = min(bp.tile, bp.max_rank * 2)
+                        grew = True
+                if not grew:
+                    break
+                if opts.verbose:
+                    print("# adaptive rank restart: saturated caps doubled, "
+                          "re-factoring")
+                self.fac = run_factor()
         self._sync()
         self._factored = True
         self.times["factor"] = time.perf_counter() - t0
-        itemsize = np.dtype(opts.factor_dtype).itemsize
-        counters.flops += self.plan.factor_flops
+        flops = (self.fac.effective_factor_flops() if compressed
+                 else self.plan.factor_flops)
+        counters.flops += flops
         counters.factor_nonzeros = self.plan.factor_nnz
         counters.factor_memory = self.fac.factor_memory()
         counters.peak_device_bytes = max(
             counters.peak_device_bytes,
             numeric.factor_peak_bytes(self.pdev, itemsize))
         if opts.verbose:
-            gfs = (self.plan.factor_flops
-                   / max(self.times["factor"], 1e-12) / 1e9)
+            gfs = flops / max(self.times["factor"], 1e-12) / 1e9
+            fmem = self.fac.factor_memory()
             print(f"#   - factor time = {self.times['factor']:.4f}")
             print(f"#   - factor nonzeros = {self.plan.factor_nnz}")
-            print(f"#   - factor memory = "
-                  f"{self.fac.factor_memory() / 1e6:.3f} MB")
-            print(f"#   - factor flops = {self.plan.factor_flops:.4g}, "
-                  f"rate = {gfs:.2f} GFlop/s")
+            print(f"#   - factor memory = {fmem / 1e6:.3f} MB")
+            if compressed:
+                dense = self.plan.factor_nnz * itemsize
+                print(f"#   - factor memory/nonzeros = "
+                      f"{100.0 * fmem / max(dense, 1):.1f} %")
+                print(f"#   - maximum rank = {self.fac.max_rank()}")
+                print(f"#   - factor flops = {flops:.4g} (effective-rank "
+                      f"model; dense-equivalent "
+                      f"{self.plan.factor_flops:.4g}), rate >= "
+                      f"{gfs:.2f} GFlop/s")
+            else:
+                print(f"#   - factor flops = {flops:.4g}, "
+                      f"rate = {gfs:.2f} GFlop/s")
         return ReturnCode.SUCCESS
 
     # -- rhs / solution transforms (SparseSolver.cpp:175-256) -------------
@@ -244,7 +309,9 @@ class SparseSolver:
         bdev = torch.as_tensor(bp, device=self.device).to(rdt)
         solver = opts.krylov_solver
         if solver == KrylovSolver.AUTO:
-            solver = KrylovSolver.REFINE
+            solver = (KrylovSolver.REFINE
+                      if opts.compression == CompressionType.NONE
+                      else KrylovSolver.PREC_GMRES)
         if solver == KrylovSolver.DIRECT:
             xdev = numeric.solve(self.fac, bdev)
             self.its = 1
@@ -254,11 +321,13 @@ class SparseSolver:
             self.achieved_rtol = float(
                 torch.linalg.vector_norm(rv)
                 / max(float(torch.linalg.vector_norm(bdev)), 1e-300))
-        else:
+        elif solver == KrylovSolver.REFINE:
             from .krylov.refine import iterative_refinement
             xdev, self.its, self.achieved_rtol = iterative_refinement(
                 self.fac, self.ell, bdev, opts.rel_tol, opts.abs_tol,
                 opts.maxit)
+        else:
+            xdev = self._krylov(solver, bdev)
         x = self._transform_x(xdev.cpu().numpy())
         self.times["solve"] = time.perf_counter() - t0
         # solve-phase flop counter: per iteration one spmv (2 nnz) + one
@@ -274,6 +343,46 @@ class SparseSolver:
                 and self.achieved_rtol > opts.rel_tol):
             rc = ReturnCode.NO_CONVERGENCE
         return x, rc
+
+    def _krylov(self, solver, bdev):
+        """GMRES or BiCGStab (``krylov/solvers.py``) on the permuted
+        system, preconditioned by the multifrontal solve for PREC_*;
+        several right-hand sides solve column by column."""
+        from .frontal import numeric
+        from .krylov import solvers as K
+        opts = self.opts
+
+        def spmv(v):
+            return self.ell @ v
+
+        def prec(r):
+            return numeric.solve(self.fac, r).to(r.dtype)
+
+        def one(bcol):
+            if solver in (KrylovSolver.PREC_GMRES, KrylovSolver.GMRES):
+                return K.gmres(
+                    spmv, prec if solver == KrylovSolver.PREC_GMRES else None,
+                    bcol, rtol=opts.rel_tol, atol=opts.abs_tol,
+                    maxit=opts.maxit, restart=opts.gmres_restart,
+                    gram_schmidt=opts.gram_schmidt.value,
+                    verbose=opts.verbose)
+            if solver in (KrylovSolver.PREC_BICGSTAB, KrylovSolver.BICGSTAB):
+                return K.bicgstab(
+                    spmv,
+                    prec if solver == KrylovSolver.PREC_BICGSTAB else None,
+                    bcol, rtol=opts.rel_tol, atol=opts.abs_tol,
+                    maxit=opts.maxit, verbose=opts.verbose)
+            raise ValueError(solver)
+
+        if bdev.ndim == 1:
+            x, self.its, self.achieved_rtol = one(bdev)
+            return x
+        cols, self.its = [], 0
+        for j in range(bdev.shape[1]):
+            x, its, self.achieved_rtol = one(bdev[:, j].contiguous())
+            cols.append(x)
+            self.its += its
+        return torch.stack(cols, dim=1)
 
     # -- stats -------------------------------------------------------------
     def Krylov_iterations(self) -> int:

@@ -1,6 +1,8 @@
-"""K3 (cross-shape front LU) and the library route against the JAX
-package: the plain K3 version against ``pallas_partial_factor`` in
-interpret mode, the library route against ``_factor_bucket``'s XLA path."""
+"""K2 (small-front LU), K3 (cross-shape front LU) and the library route
+against the JAX package: the plain K2 and K3 versions against
+``pallas_factor_bucket`` and ``pallas_partial_factor`` in interpret mode,
+the no-pivot elimination against ``nopivot_factor_bucket_xla``, the
+library route against ``_factor_bucket``'s XLA path."""
 import numpy as np
 import pytest
 import torch
@@ -8,7 +10,9 @@ import torch
 import jax.numpy as jnp
 
 from strumpack_tpu.frontal.numeric import _factor_bucket
-from strumpack_tpu.ops.pallas_lu import pallas_partial_factor
+from strumpack_tpu.ops.pallas_lu import (nopivot_factor_bucket_xla,
+                                         pallas_factor_bucket,
+                                         pallas_partial_factor)
 
 from strumpack_tpu_torch.ops import front_lu as FL
 
@@ -88,3 +92,96 @@ def test_lapack_pivots_to_perm():
         L = np.tril(lu[f].numpy(), -1) + np.eye(s)
         U = np.triu(lu[f].numpy())
         np.testing.assert_allclose(L @ U, A[f].numpy()[want], atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# K2
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pivot", [True, False])
+@pytest.mark.parametrize("nf,p,s", [(9, 16, 12), (3, 32, 24), (1, 8, 8)])
+def test_small_lu_plain_matches_pallas_interpret(pivot, nf, p, s):
+    """The shapes tests/test_pallas_lu.py runs: perm identical, the packed
+    front within 1e-12 of its largest entry.  f64 elimination, same pivot
+    rule and operation order; the two differ only where rounding falls
+    (JAX's masked-sum formulation), a few ulps times the element growth."""
+    rng = np.random.default_rng(nf * p + pivot)
+    F = rng.standard_normal((nf, p, p))
+    if not pivot:   # diagonally dominant so no-pivot elimination is stable
+        F += np.eye(p) * 8
+    thresh = 1e-3
+    want, wperm = pallas_factor_bucket(jnp.asarray(F), thresh=thresh,
+                                       s_pad=s, pivot=pivot, interpret=True)
+    got, perm = FL.factor_bucket(torch.from_numpy(F), thresh, s, pivot)
+    np.testing.assert_array_equal(perm.numpy(), np.asarray(wperm))
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-12 * np.abs(want).max())
+
+
+def test_small_lu_pivot_order():
+    """A block that needs row pivoting (tests/test_pallas_lu.py:50)."""
+    A = np.array([[1e-7, 1.0], [1.0, 1.0]])
+    packed, perm = FL.factor_bucket(torch.from_numpy(A[None]), 0.0, 2)
+    assert perm[0].tolist() == [1, 0]
+    assert abs(np.triu(packed[0].numpy())[0, 0]) == 1.0
+
+
+def test_small_lu_ties_take_the_lowest_row():
+    """Among equal |.| candidates the lowest unpivoted row wins, as in the
+    TPU kernel (pallas_lu.py:74-77); pivoted rows never return."""
+    A = np.array([[1.0, 2.0, 0.0],
+                  [-1.0, 0.0, 1.0],
+                  [1.0, 1.0, 3.0]])
+    want, wperm = pallas_factor_bucket(jnp.asarray(A[None]), s_pad=3,
+                                       pivot=True, interpret=True)
+    got, perm = FL.factor_bucket(torch.from_numpy(A[None]), 0.0, 3)
+    assert perm[0].tolist() == np.asarray(wperm)[0].tolist()
+    assert perm[0, 0] == 0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-15)
+
+
+def test_small_lu_tiny_pivot_replacement():
+    """An exactly singular leading block (tests/test_pallas_lu.py:75): the
+    tiny pivots are replaced during the elimination, as in the kernel."""
+    A = np.zeros((4, 4))
+    A[2, 2] = A[3, 3] = 1.0
+    want, wperm = pallas_factor_bucket(jnp.asarray(A[None]), thresh=1e-3,
+                                       s_pad=4, pivot=True, interpret=True)
+    got, perm = FL.factor_bucket(torch.from_numpy(A[None]), 1e-3, 4)
+    np.testing.assert_array_equal(perm.numpy(), np.asarray(wperm))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    d = np.abs(np.diag(got[0].numpy()))
+    assert (d >= 1e-3).all() and np.isfinite(got.numpy()).all()
+
+
+def test_nopivot_factor_bucket_matches_xla():
+    """f64, 1e-12 of the largest entry: the same elimination order."""
+    rng = np.random.default_rng(3)
+    nf, p, s = 5, 24, 16
+    F = rng.standard_normal((nf, p, p)) + np.eye(p) * 10
+    F[1, 0, 0] = 0.0                  # a zero pivot, replaced by thresh
+    want = np.asarray(nopivot_factor_bucket_xla(jnp.asarray(F), 1e-3, s))
+    got = FL.nopivot_factor_bucket(torch.from_numpy(F), 1e-3, s).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-12 * np.abs(want).max())
+    assert got[1, 0, 0] == 1e-3
+
+
+def test_cross_plain_without_pivoting():
+    """K3's no-pivot mode (pallas_partial_factor(pivot=False)), f32 as in
+    test_plain_matches_pallas_interpret."""
+    rng = np.random.default_rng(4)
+    nf, p, s = 3, 40, 16
+    F = (rng.standard_normal((nf, p, p)) + np.eye(p) * 8).astype(np.float32)
+    want = pallas_partial_factor(jnp.asarray(F), thresh=1e-3, s_pad=s,
+                                 pivot=False, interpret=True)
+    got = FL.partial_factor(torch.from_numpy(F), 1e-3, s, pivot=False)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    for name, a, b in zip(NAMES, got, want):
+        if name != "perm":
+            b = np.asarray(b)
+            np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                       atol=1e-5 * np.abs(b).max(),
+                                       err_msg=name)

@@ -31,7 +31,8 @@ def _imports(path):
 
 def test_package_run_imports_no_jax():
     """A fresh interpreter (no test conftest) imports the package and runs
-    its host pipeline and a small CPU solve: no jax* and no
+    its host pipeline, a small CPU solve and a small BLR + GMRES solve: no
+    jax* and no
     strumpack_tpu.* module may appear in sys.modules."""
     code = (
         "import sys, numpy as np\n"
@@ -42,6 +43,15 @@ def test_package_run_imports_no_jax():
         "s = st.SparseSolver(st.SPOptions(), device='cpu')\n"
         "s.set_csr_matrix(A)\n"
         "s.reorder(8, 8)\n"
+        "x, rc = s.solve(A.spmv(np.ones(A.n)))\n"
+        "assert rc == st.ReturnCode.SUCCESS\n"
+        "o = st.SPOptions(compression=st.CompressionType.BLR,\n"
+        "                 compression_min_sep_size=16)\n"
+        "o.blr.leaf_size = 16\n"
+        "s = st.SparseSolver(o, device='cpu')\n"
+        "s.set_csr_matrix(A)\n"
+        "s.reorder(8, 8)\n"
+        "assert any(bp.blr for lvl in s.plan.levels for bp in lvl)\n"
         "x, rc = s.solve(A.spmv(np.ones(A.n)))\n"
         "assert rc == st.ReturnCode.SUCCESS\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax')"
@@ -61,7 +71,12 @@ def test_sources_import_no_jax():
     for d, _, names in os.walk(PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     bad = {f: m for f in files for m in _imports(f) if _forbidden(m)}
-    assert len(files) > 15 and not bad, bad
+    names = {os.path.relpath(f, PKG) for f in files}
+    for mod in ("ops/rrqr.py", "ops/panel_lu.py", "frontal/blr.py",
+                "krylov/solvers.py", "sparse/ordering/nd.py",
+                "sparse/ordering/separator_reorder.py"):
+        assert mod in names, mod
+    assert len(files) > 20 and not bad, bad
 
 
 def test_solver_without_device_needs_cuda():

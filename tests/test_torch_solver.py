@@ -104,7 +104,8 @@ def test_f32_exact32_options():
                      refine_dtype="float32", rel_tol=1e-5,
                      krylov_solver=st.KrylovSolver.REFINE, nd_leaf=16)
     b = A.spmv(np.random.default_rng(1).standard_normal(A.n))
-    st_numeric.route_counts.update(k3=0, k2_queued=0, library=0)
+    for k in st_numeric.route_counts:
+        st_numeric.route_counts[k] = 0
     x, rc = s.solve(b)
     assert rc == st.ReturnCode.SUCCESS
     assert s.achieved_rtol <= 1e-5
