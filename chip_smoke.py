@@ -9,11 +9,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: the four CUDA kernels compiled from csrc/ with nvcc for sm_90a,
    one nvcc per source, all started together;
 3. each kernel against its plain PyTorch version on the card, at shapes of
-   the main paths: K1 (extend-add) bit-exact on real 64^3 plan maps, K3
-   (cross-shape front LU), K2 (small-front LU) and K4 (panel LU, both its
-   variants, and the blocked LU over it) by the layered checks below;
-   kernel, plain and library times by CUDA events (median of 15 after 3
-   warm-ups);
+   the main paths: K1 (extend-add) bit-exact on real 64^3 plan maps, with
+   one index_add_ as its yardstick; K3 (cross-shape front LU) by the
+   layered checks below; K2 (small-front LU) and K4 (panel LU) bit-exact
+   at every shape one blr50 factorization launches and at the shapes of
+   the other designs (K4 on one CTA, on clusters of 2, 8 and 16 CTAs, in
+   global memory), and the blocked LU over K4; kernel, plain and library
+   times by CUDA events (median of 15 after 3 warm-ups); K2's and K4's
+   ptxas report checked for spills in phase 2;
 4. exact32: Poisson 32^3, f32 factor + f32 iterative refinement to 1e-5;
 5. exact64: Poisson 64^3, the same, plus peak device memory;
 6. f64: Poisson 32^3 in float64 (the kernels' double instantiation);
@@ -89,6 +92,23 @@ def k1_pairs(pdev):
     return pick
 
 
+def k1_flat_index(idxn, posn, p, nfc, u, n_f):
+    """The index_add_ form of one K1 pair: the flat index in F of every
+    element of C ([nfc, u, u]), and which elements a front takes.  An
+    element no front takes (padding, a child of another parent bucket) is
+    sent to its own flat position modulo F's size n_f, and the caller
+    zeroes it in C, so it adds +0."""
+    flat = np.arange(nfc * u * u, dtype=np.int64) % n_f
+    taken = np.zeros(nfc * u * u, dtype=bool)
+    for f in np.nonzero(idxn >= 0)[0]:
+        rows = np.nonzero(posn[f] >= 0)[0]
+        a = posn[f, rows].astype(np.int64)
+        src = int(idxn[f]) * u * u + a[:, None] * u + a[None, :]
+        flat[src] = f * p * p + rows[:, None] * p + rows[None, :]
+        taken[src] = True
+    return flat, taken
+
+
 def check_k1(torch, pdev, rng):
     from strumpack_tpu_torch.ops.extend_add import extend_add, extend_add_plain
     out = []
@@ -113,26 +133,44 @@ def check_k1(torch, pdev, rng):
         nval = ((posn >= 0) & (idxn >= 0)[:, None]).sum(axis=1)
         nbytes = (3 * 4 * int((nval.astype(np.int64) ** 2).sum())
                   + 4 * p * int((idxn >= 0).sum()) + 4 * nf)
+        # yardstick: one index_add_ over flat indices built here, outside
+        # the timed call; exact, since the pos maps are injective
+        flat, taken = k1_flat_index(idxn, posn, p, nfc, u, F.numel())
+        flat = torch.from_numpy(flat).cuda()
+        Cz = C.clone()
+        Cz.view(-1)[torch.from_numpy(~taken).cuda()] = 0.0
+        Fl = F.clone()
+        Fl.view(-1).index_add_(0, flat, Cz.view(-1))
+        check(torch.equal(Fl, Fk), f"K1 index_add_ yardstick equals K1 at p={p}")
         Fw = F.clone()
         ms = cuda_ms(lambda: extend_add(Fw, C, pr.idx, pos), torch)
         Fw = F.clone()
         plain = cuda_ms(lambda: extend_add_plain(Fw, C, pr.idx, pos), torch)
+        Fw = F.clone()
+        lib = cuda_ms(lambda: Fw.view(-1).index_add_(0, flat, Cz.view(-1)),
+                      torch)
         rec = dict(p=p, u=u, nf=nf, nfc=nfc, level=li, bucket=bi, side=side,
                    max_abs_err=err, ms=ms, plain_ms=plain,
                    bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
-                   library_ms=None)
+                   library_ms=lib)
         print("K1", json.dumps(rec), flush=True)
         out.append(rec)
-        del F, C, Fk, Fp, Fw
+        del F, C, Fk, Fp, Fw, Fl, Cz, flat
     return out
 
 
-def backward_errors(torch, P1, P2, L11, L21, U, U12):
+def backward_errors(torch, P1, P2, L11, L21, U, U12, skip=None):
     """Per front: |P F - L U| / (|L| |U|) over the factored columns and
     |P F12 - L11 U12| / (|L11| |U12|), in f64.  LU with partial pivoting
-    meets both with gamma_s = s eps / (1 - s eps) (Higham, Thm 9.3)."""
+    meets both with gamma_s = s eps / (1 - s eps) (Higham, Thm 9.3).
+    ``skip`` [nf, s]: diagonal entries left out of the first residual, the
+    pivots the tiny-pivot rule replaced (each changes its one entry of
+    P F by thresh - pivot and nothing else)."""
     L = L11 if L21 is None else torch.cat([L11, L21], dim=1)
     R1 = P1 - L @ U
+    if skip is not None:
+        d = R1.diagonal(dim1=1, dim2=2)
+        d.copy_(torch.where(skip, torch.zeros_like(d), d))
     be = R1.abs().amax(dim=(1, 2)) / (L.abs() @ U.abs()).amax(dim=(1, 2))
     if U12 is not None and U12.shape[-1]:
         R2 = P2 - L11 @ U12
@@ -162,9 +200,10 @@ def k2_flops(nf, p, s):
     return nf * int(((p - k - 1) + 2 * (p - k - 1) ** 2).sum())
 
 
-def check_k2(torch, rng, nf, p, s, dtype, pivot=True):
-    """K2 against its plain version: perm identical, values by the layered
-    check, the zero pivot of front 0 replaced, backward error."""
+def check_k2(torch, rng, nf, p, s, dtype, pivot=True, launches=0):
+    """K2 against its plain version: perm identical, the packed fronts bit
+    for bit, the zero pivot of front 0 replaced, backward error.
+    ``launches``: how often one blr50 factorization launches this shape."""
     from strumpack_tpu_torch.ops import front_lu as FL
     eps = float(np.finfo(dtype).eps)
     thresh = float(np.sqrt(eps))
@@ -179,8 +218,9 @@ def check_k2(torch, rng, nf, p, s, dtype, pivot=True):
     same = (k[1] == q[1]).all(dim=1)
     check(bool(same.all()), f"K2 perm identical ({int((~same).sum())} "
           f"fronts differ) at {(nf, p, s, dtype, pivot)}")
+    check(torch.equal(k[0], q[0]), f"K2 bit-exact at {(nf, p, s, dtype)}")
+    err = float((k[0] - q[0]).abs().max())
     tol = 1e-5 if dtype == "float32" else 1e-12
-    err = compare(("K2 packed",), (k[0],), (q[0],), same, tol)
     lu, L21, U12, CB = (x.double() for x in FL.unpack_factors(k[0], s))
     perm = k[1]
     Fd = F.double()
@@ -191,16 +231,17 @@ def check_k2(torch, rng, nf, p, s, dtype, pivot=True):
                                  perm[:, :, None].expand(-1, -1, s)),
                     Fd[:, s:, :s]], dim=1)
     P2 = torch.gather(Fd[:, :s, s:], 1, perm[:, :, None].expand(-1, -1, p - s))
-    be = backward_errors(torch, P1, P2, L11, L21 if p > s else None, U, U12)
-    replaced = (torch.diagonal(U, dim1=1, dim2=2).abs()
-                == float(np.asarray(thresh, dtype))).any(dim=1)
+    rep = (torch.diagonal(U, dim1=1, dim2=2).abs()
+           == float(np.asarray(thresh, dtype)))
+    replaced = rep.any(dim=1)
     check(bool(replaced[0]), "K2 front 0 has its zero pivot replaced")
-    ok = ~replaced
-    check(bool((be[ok] <= tol).all()), f"K2 backward error {float(be[ok].max()):.3g}")
+    be = backward_errors(torch, P1, P2, L11, L21 if p > s else None, U, U12,
+                         skip=rep)
+    check(bool((be <= tol).all()), f"K2 backward error {float(be.max()):.3g}")
     if p > s:           # the Schur complement: CB = F22 - L21 U12
         rcb = (Fd[:, s:, s:] - L21 @ U12 - CB).abs().amax(dim=(1, 2))
         scb = (Fd[:, s:, s:].abs() + L21.abs() @ U12.abs()).amax(dim=(1, 2))
-        check(bool((rcb[ok] <= tol * scb[ok]).all()), "K2 Schur complement")
+        check(bool((rcb <= tol * scb).all()), "K2 Schur complement")
     del lu, L21, U12, CB, Fd, L11, U, P1, P2
 
     ms = cuda_ms(lambda: FL.factor_bucket(F, thresh, s, pivot), torch)
@@ -214,8 +255,11 @@ def check_k2(torch, rng, nf, p, s, dtype, pivot=True):
     tb = nbytes / PEAK_BYTES * 1e3
     tf = k2_flops(nf, p, s) / PEAK_FLOPS[dtype] * 1e3
     rec = dict(nf=nf, p=p, s=s, dtype=dtype, pivot=pivot,
+               fronts_per_cta=FL.k2_layout(
+                   p, nf, torch.cuda.get_device_properties(0)
+                   .multi_processor_count)[1], blr50_launches=launches,
                replaced_fronts=int(replaced.sum()), max_abs_err=err,
-               backward_error=float(be[ok].max()), ms=ms, plain_ms=plain,
+               backward_error=float(be.max()), ms=ms, plain_ms=plain,
                library_ms=lib, bound_ms=max(tb, tf),
                bound_by="bytes" if tb >= tf else "operations")
     print("K2", json.dumps(rec), flush=True)
@@ -229,28 +273,31 @@ def k4_flops(nf, p, w, row0):
     return nf * int((nr + 2 * nr * (w - k - 1)).sum())
 
 
-def check_k4(torch, rng, nf, p, w, row0, dtype, want_variant):
+def check_k4(torch, rng, nf, p, w, row0, dtype, want, launches=0):
     """K4 against its plain version on one panel per front (pivots from
-    rows [row0, p)): pivot rows identical, values by the layered check, the
-    zero pivot of front 0 replaced, backward error of the permuted panel."""
+    rows [row0, p)): ``want`` = (design, cluster size) chosen and launched,
+    pivot rows identical, the panel bit for bit, the zero pivot of front 0
+    replaced, backward error of the permuted panel.  ``launches``: how
+    often one blr50 factorization launches this shape."""
     from strumpack_tpu_torch.ops import panel_lu as PP
     eps = float(np.finfo(dtype).eps)
     thresh = float(np.sqrt(eps))
-    check(PP.variant(p, w, np.dtype(dtype).itemsize) == want_variant,
-          f"K4 variant at {(p, w, dtype)}")
+    check(PP.design(p, w, np.dtype(dtype).itemsize, row0) == want,
+          f"K4 design at {(p, w, row0, dtype)}")
     Pn = rng.standard_normal((nf, p, w)).astype(dtype)
     Pn[0, :, 0] = 0.0
     panel = torch.from_numpy(Pn).cuda()
     before = dict(PP.panel_lu.variants)
     k = PP.panel_lu(panel, thresh, row0, w, p)
-    check(PP.panel_lu.variants[want_variant] == before[want_variant] + 1,
-          f"K4 launched its {want_variant} variant")
+    check(PP.panel_lu.variants[want[0]] == before[want[0]] + 1,
+          f"K4 launched its {want[0]} design")
     q = PP.panel_lu_plain(panel, thresh, row0, w, p)
     torch.cuda.synchronize()
     same = (k[1] == q[1]).all(dim=1)
     check(bool(same.all()), f"K4 pivot rows identical at {(nf, p, w, row0)}")
+    check(torch.equal(k[0], q[0]), f"K4 bit-exact at {(nf, p, w, row0, dtype)}")
+    err = float((k[0] - q[0]).abs().max())
     tol = 1e-5 if dtype == "float32" else 1e-12
-    err = compare(("K4 panel",), (k[0],), (q[0],), same, tol)
     # P panel[row0:] = [L11; L21] U11 on the rows it eliminates
     pj = PP.panel_perm(k[1], p, row0, w)
     G = torch.gather(k[0].double(), 1, pj[:, :, None].expand(-1, -1, w))
@@ -258,12 +305,12 @@ def check_k4(torch, rng, nf, p, w, row0, dtype, want_variant):
     eye = torch.eye(w, dtype=torch.float64, device=panel.device)
     L11 = torch.tril(G[:, row0:row0 + w], -1) + eye
     U = torch.triu(G[:, row0:row0 + w])
-    be = backward_errors(torch, Pin[:, row0:], None, L11, G[:, row0 + w:], U, None)
-    replaced = (torch.diagonal(U, dim1=1, dim2=2).abs()
-                == float(np.asarray(thresh, dtype))).any(dim=1)
-    check(bool(replaced[0]), "K4 front 0 has its zero pivot replaced")
-    check(bool((be[~replaced] <= tol).all()),
-          f"K4 backward error {float(be[~replaced].max()):.3g}")
+    rep = (torch.diagonal(U, dim1=1, dim2=2).abs()
+           == float(np.asarray(thresh, dtype)))
+    check(bool(rep[0].any()), "K4 front 0 has its zero pivot replaced")
+    be = backward_errors(torch, Pin[:, row0:], None, L11, G[:, row0 + w:], U,
+                         None, skip=rep)
+    check(bool((be <= tol).all()), f"K4 backward error {float(be.max()):.3g}")
     check(torch.equal(k[0][:, :row0], panel[:, :row0]), "K4 rows < row0 kept")
     del G, Pin, L11, U
 
@@ -275,8 +322,9 @@ def check_k4(torch, rng, nf, p, w, row0, dtype, want_variant):
     nbytes = nf * (np.dtype(dtype).itemsize * 2 * p * w + 8 * w)
     tb = nbytes / PEAK_BYTES * 1e3
     tf = k4_flops(nf, p, w, row0) / PEAK_FLOPS[dtype] * 1e3
-    rec = dict(nf=nf, p=p, w=w, row0=row0, dtype=dtype, variant=want_variant,
-               max_abs_err=err, backward_error=float(be[~replaced].max()),
+    rec = dict(nf=nf, p=p, w=w, row0=row0, dtype=dtype, design=want[0],
+               cluster=want[1], blr50_launches=launches, max_abs_err=err,
+               backward_error=float(be.max()),
                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=max(tb, tf),
                bound_by="bytes" if tb >= tf else "operations")
     print("K4", json.dumps(rec), flush=True)
@@ -387,6 +435,52 @@ def check_k3(torch, rng, nf, p, s, dtype):
     return rec
 
 
+def ptxas_report(log):
+    """(kernel, registers, stack, spill stores, spill loads) of every
+    K2 and K4 instantiation in ptxas's -v output, by source."""
+    import re
+    rows = []
+    for src in ("small_lu", "panel_lu"):
+        name = None
+        for line in log.get(src, "").splitlines():
+            m = re.search(r"entry function '(\S+)'", line)
+            if m:
+                name = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m and name:
+                st = tuple(int(x) for x in m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                short = re.sub(r"^.*?(small_lu_kernel|panel_lu_reg|"
+                               r"panel_lu_global)", r"\1", name)
+                rows.append((short, int(m.group(1))) + st)
+                name = None
+    return rows
+
+
+def blr_shapes(pdev):
+    """K2 and K4 shapes of one factorization of a BLR plan, each with the
+    number of launches: K2 (nf, p, s) of the dense buckets and of the tile
+    LUs of t <= 64; K4 (nf, p, w, row0) of each panel of the tile LUs of
+    t > 64, as blocked_factor_bucket cuts them."""
+    from collections import Counter
+    from strumpack_tpu_torch.ops import front_lu as FL
+    from strumpack_tpu_torch.ops import panel_lu as PP
+    k2, k4 = Counter(pdev.k2_dense_shapes()), Counter()
+    for nf, t in pdev.batched_lu_shapes():
+        if t <= FL.MAX_PALLAS_P:
+            k2[(nf, t, t)] += 1
+        elif t <= PP.MAX_PANEL_P:
+            for jb in range(0, t, PP.PANEL_W):
+                k4[(nf, t, min(PP.PANEL_W, t - jb), jb)] += 1
+    check(sum(k2.values()) == pdev.k2_launches()
+          and sum(k4.values()) == pdev.k4_launches(),
+          "blr50 K2/K4 shapes add up to the plan's launches")
+    return k2, k4
+
+
 # ---------------------------------------------------------------------------
 # phases 4-7: the solver
 # ---------------------------------------------------------------------------
@@ -401,16 +495,21 @@ def _wrappers():
 
 def reset_counts():
     from strumpack_tpu_torch.frontal import numeric
+    from strumpack_tpu_torch.ops.panel_lu import panel_lu
     for fn in _wrappers().values():
         fn.launches = 0
     for k in numeric.route_counts:
         numeric.route_counts[k] = 0
+    for k in panel_lu.variants:
+        panel_lu.variants[k] = 0
 
 
 def read_counts():
     from strumpack_tpu_torch.frontal import numeric
+    from strumpack_tpu_torch.ops.panel_lu import panel_lu
     out = {name: fn.launches for name, fn in _wrappers().items()}
     out["routes"] = dict(numeric.route_counts)
+    out["panel_lu_designs"] = dict(panel_lu.variants)
     return out
 
 
@@ -443,11 +542,13 @@ PLAN_LAUNCHES = dict(extend_add="ea_pairs", front_lu_cross="k3_buckets",
 
 def run_solver(torch, name, A, s, t_reorder, seed, res_tol=None,
                scaled_tol=None, memory=False, profile=False,
-               launched=("extend_add", "front_lu_cross"), peak_check=True):
+               launched=("extend_add", "front_lu_cross"), peak_check=True,
+               k4_design=None):
     """Factor and solve once with the launch counters zeroed, check the
     counts against the plan and the result against the limits, then time
     3 steady factor + solve pairs.  ``launched``: the kernels this path
-    must have launched at least once."""
+    must have launched at least once; ``k4_design``: the K4 design every
+    K4 launch must have taken."""
     import strumpack_tpu_torch as st
     from strumpack_tpu_torch.frontal import numeric
     plan, pdev = s.plan, s.pdev
@@ -475,6 +576,9 @@ def run_solver(torch, name, A, s, t_reorder, seed, res_tol=None,
               f"{name}: {k} launches {counts[k]} == plan {n} x {passes}")
     for k in launched:
         check(counts[k] > 0, f"{name}: {k} launched")
+    if k4_design:
+        check(counts["panel_lu_designs"][k4_design] == counts["panel_lu"],
+              f"{name}: every K4 launch on the {k4_design} design")
     check(sum(counts["routes"].values()) == nb * passes,
           f"{name}: every bucket routed")
     check(rc == st.ReturnCode.SUCCESS, f"{name}: solve returned {rc}")
@@ -539,7 +643,7 @@ KERNEL_GROUPS = (
     ("K1 extend_add", ("extend_add_kernel",)),
     ("K3 lu_cross", ("lu_cross_kernel",)),
     ("K2 small_lu", ("small_lu_kernel",)),
-    ("K4 panel_lu", ("panel_lu_kernel",)),
+    ("K4 panel_lu", ("panel_lu_reg", "panel_lu_global")),
     ("library LU (getrf, pivots)", ("getrf", "getf2", "laswp", "swap",
                                     "pivinfo", "computecolumn",
                                     "displace_pointers", "iamax")),
@@ -640,9 +744,18 @@ def main():
 
     phase("2 build")
     t0 = time.perf_counter()
-    secs = _build.build(verbose=True)
+    log = {}
+    secs = _build.build(verbose=True, log=log)
     print(f"build {time.perf_counter() - t0:.2f} s {json.dumps(secs)}",
           flush=True)
+    # K2 and K4 hold their rows in registers: no instantiation may spill
+    ptxas = ptxas_report(log)
+    for kname, regs, stack, sst, sld in ptxas:
+        print(f"ptxas {kname[:60]:60s} {regs:4d} registers, stack {stack}, "
+              f"spill {sst}/{sld}")
+        check(stack == sst == sld == 0, f"{kname}: no stack or spill")
+    if not ptxas:
+        print("ptxas: K2/K4 not rebuilt in this run, spill check not made")
 
     phase("3 kernels against their plain versions")
     A64, s64, t_reorder64 = make_solver(64, "float32", 1e-5)
@@ -652,18 +765,36 @@ def main():
     k3 = [check_k3(torch, rng, nf, p, s, "float32")
           for nf, p, s in ((8192, 48, 16), (4096, 80, 16), (1024, 216, 24))]
     k3.append(check_k3(torch, rng, 4096, 80, 16, "float64"))
-    # K2 at the blr50 shapes: the s = 4 dense bucket and the 64 x 64 tiles
-    k2 = [check_k2(torch, rng, 2048, 52, 4, "float32"),
-          check_k2(torch, rng, 16, 64, 64, "float32"),
-          check_k2(torch, rng, 16, 64, 64, "float32", pivot=False),
-          check_k2(torch, rng, 2048, 52, 4, "float64")]
-    # K4 at the blr50 tile panels (t = 96, and both 128-wide panels of
-    # t = 256), f64 at t = 256 and a tall panel (the global variant)
-    k4 = [check_k4(torch, rng, 64, 96, 96, 0, "float32", "shared"),
-          check_k4(torch, rng, 8, 256, 128, 0, "float32", "shared"),
-          check_k4(torch, rng, 8, 256, 128, 128, "float32", "shared"),
-          check_k4(torch, rng, 8, 256, 128, 0, "float64", "global"),
-          check_k4(torch, rng, 4, 2048, 128, 0, "float32", "global")]
+    # K2 and K4 at every shape one blr50 factorization launches, then the
+    # shapes of the earlier checks and the other designs
+    A50, s50, t_reorder50 = make_solver(50, "float32", 1e-4, blr=True)
+    print(f"blr50 reorder {t_reorder50:.2f} s", flush=True)
+    k2_blr, k4_blr = blr_shapes(s50.pdev)
+    print(f"blr50 K2 shapes {sorted(k2_blr.items())}", flush=True)
+    print(f"blr50 K4 shapes {sorted(k4_blr.items())}", flush=True)
+    k2 = [check_k2(torch, rng, nf, p, s, "float32", launches=n)
+          for (nf, p, s), n in sorted(k2_blr.items())]
+    k2 += [check_k2(torch, rng, 16, 64, 64, "float32", pivot=False),
+           check_k2(torch, rng, 1, 64, 64, "float32"),
+           check_k2(torch, rng, 256, 32, 32, "float32"),
+           check_k2(torch, rng, 2048, 52, 4, "float64")]
+    if (2048, 52, 4) not in k2_blr:
+        k2.append(check_k2(torch, rng, 2048, 52, 4, "float32"))
+    if (16, 64, 64) not in k2_blr:
+        k2.append(check_k2(torch, rng, 16, 64, 64, "float32"))
+    k4 = [check_k4(torch, rng, nf, p, w, row0, "float32", ("cta", 1),
+                   launches=n)
+          for (nf, p, w, row0), n in sorted(k4_blr.items())]
+    k4 += [check_k4(torch, rng, *shape, want)
+           for shape, want in (
+               ((64, 96, 96, 0, "float32"), ("cta", 1)),
+               ((8, 256, 128, 0, "float32"), ("cta", 1)),
+               ((8, 256, 128, 128, "float32"), ("cta", 1)),
+               ((16, 192, 64, 128, "float32"), ("cta", 1)),
+               ((8, 256, 128, 0, "float64"), ("cluster", 2)),
+               ((4, 2048, 128, 0, "float32"), ("cluster", 8)),
+               ((2, 4096, 128, 0, "float32"), ("cluster", 16)),
+               ((1, 8192, 128, 0, "float32"), ("global", 0)))]
     blocked = check_blocked(torch, rng, 8, 256, "float32")
     torch.cuda.empty_cache()
 
@@ -688,15 +819,16 @@ def main():
     torch.cuda.empty_cache()
 
     phase("7 blr50")
-    A50, s50, t_reorder50 = make_solver(50, "float32", 1e-4, blr=True)
     blr_run = run_solver(torch, "blr50", A50, s50, t_reorder50, seed=50,
                          res_tol=1e-3, memory=True, profile=True,
-                         launched=tuple(PLAN_LAUNCHES), peak_check=False)
+                         launched=tuple(PLAN_LAUNCHES), peak_check=False,
+                         k4_design="cta")
     del A50, s50
     torch.cuda.empty_cache()
 
     phase("8 summary")
     print("K4-blocked", json.dumps(blocked))
+    print("ptxas", json.dumps(ptxas))
 
     def entry(name, src, replaces, run, key, recs):
         return dict(

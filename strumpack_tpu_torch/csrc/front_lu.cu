@@ -36,14 +36,13 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "lu_common.cuh"
+
 namespace {
 
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+using lu::div_rn;
+using lu::mul_rn;
+using lu::sub_rn;
 
 constexpr int THREADS = 256;
 
@@ -103,8 +102,7 @@ lu_cross_kernel(const T* __restrict__ F, T* __restrict__ lu,
       if (tid == 0) { const int t = P[k]; P[k] = P[r]; P[r] = t; }
       __syncthreads();
     }
-    T piv = A[k * s + k];
-    if (fabs(piv) < thresh) piv = piv == T(0) ? thresh : copysign(thresh, piv);
+    const T piv = lu::replace_tiny(A[k * s + k], thresh);
     __syncthreads();  // every thread has read A[k, k] before it is rewritten
     if (tid == 0) A[k * s + k] = piv;
     for (int i = k + 1 + tid; i < p; i += nt) A[i * s + k] = div_rn(A[i * s + k], piv);

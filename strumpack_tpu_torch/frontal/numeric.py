@@ -138,22 +138,31 @@ class PlanDev:
         """Number of buckets routed to K3: its launches per factorization."""
         return sum(FL.use_cross(bp.s_pad, bp.p, bp.nf) for bp in self._dense())
 
+    def k2_dense_shapes(self):
+        """(nf, p, s) of each dense bucket K2 factors: p <= 64 and not
+        taken by K3."""
+        return [(bp.nf, bp.p, bp.s_pad) for bp in self._dense()
+                if not FL.use_cross(bp.s_pad, bp.p, bp.nf)
+                and bp.p <= FL.MAX_PALLAS_P]
+
+    def batched_lu_shapes(self):
+        """(nf, t) of every ``batched_lu`` call of one factorization: one
+        per diagonal tile step of each BLR bucket, in plan order."""
+        return [(bp.nf, bp.tile) for bp in self._blr()
+                for _ in range(bp.s_pad // bp.tile)]
+
     def k2_launches(self):
-        """K2 launches per factorization: the dense buckets of p <= 64 that
-        K3 does not take, and one per diagonal tile step of each BLR
-        bucket with tiles up to 64."""
-        dense = sum(not FL.use_cross(bp.s_pad, bp.p, bp.nf)
-                    and bp.p <= FL.MAX_PALLAS_P for bp in self._dense())
-        tiles = sum(bp.s_pad // bp.tile for bp in self._blr()
-                    if bp.tile <= FL.MAX_PALLAS_P)
-        return dense + tiles
+        """K2 launches per factorization: the dense buckets of
+        ``k2_dense_shapes`` and the ``batched_lu`` calls of tiles up to
+        64."""
+        return len(self.k2_dense_shapes()) + sum(
+            t <= FL.MAX_PALLAS_P for _, t in self.batched_lu_shapes())
 
     def k4_launches(self):
         """K4 launches per factorization: one per 128-wide panel of each
-        diagonal tile step of the BLR buckets with tiles of 65..8192."""
-        return sum((bp.s_pad // bp.tile) * -(-bp.tile // PP.PANEL_W)
-                   for bp in self._blr()
-                   if FL.MAX_PALLAS_P < bp.tile <= PP.MAX_PANEL_P)
+        ``batched_lu`` call of tiles of 65..8192."""
+        return sum(-(-t // PP.PANEL_W) for _, t in self.batched_lu_shapes()
+                   if FL.MAX_PALLAS_P < t <= PP.MAX_PANEL_P)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into ``_build/lib<name>.so`` for Hopper (``sm_90a``), then loaded with
-``ctypes``.  A library is rebuilt when its source is newer than it.  Nothing
+``ctypes``.  A library is rebuilt when its source, or a header of ``csrc/``,
+is newer than it.  Nothing
 here runs at import time, so the package imports on a machine without
 ``nvcc`` or a GPU; the first kernel launch builds what it needs.
 """
@@ -39,16 +40,22 @@ def _paths(name):
 
 
 def _stale(name) -> bool:
+    """Whether lib<name>.so is missing or older than its source or any
+    header of csrc/ (the sources share ``lu_common.cuh``)."""
     src, so = _paths(name)
-    return (not os.path.exists(so)
-            or os.path.getmtime(so) < os.path.getmtime(src))
+    if not os.path.exists(so):
+        return True
+    deps = [src] + [os.path.join(SRC_DIR, h) for h in os.listdir(SRC_DIR)
+                    if h.endswith(".cuh")]
+    return os.path.getmtime(so) < max(map(os.path.getmtime, deps))
 
 
-def build(names=KERNEL_SOURCES, verbose=False) -> dict:
+def build(names=KERNEL_SOURCES, verbose=False, log=None) -> dict:
     """Compile every stale source in ``names``, one ``nvcc`` process per
     source, all started together.  Returns {name: seconds} for the
-    sources compiled; with ``verbose`` ptxas's register and shared-memory
-    report is printed.  Raises RuntimeError on a failed build."""
+    sources compiled; with ``verbose`` ptxas's register, spill and
+    shared-memory report is printed, and stored in ``log[name]`` when a
+    dict is given.  Raises RuntimeError on a failed build."""
     todo = [n for n in names if _stale(n)]
     if not todo:
         return {}
@@ -73,6 +80,8 @@ def build(names=KERNEL_SOURCES, verbose=False) -> dict:
             continue
         if verbose and out:
             print(out, end="" if out.endswith("\n") else "\n")
+            if log is not None:
+                log[name] = out
         os.replace(tmp, so)   # atomic: a concurrent loader never sees half a file
     if errors:
         raise RuntimeError("\n".join(errors))
@@ -95,6 +104,14 @@ def load(name, signatures) -> ctypes.CDLL:
         err_fn.argtypes = [ctypes.c_int]
         _libs[name] = lib
     return lib
+
+
+def stream(device) -> int:
+    """The current CUDA stream of ``device`` as a raw handle, read without
+    the Python Stream object ``torch.cuda.current_stream`` builds on every
+    call (a launch's host time counts against the small kernels)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(lib, name: str, err: int) -> None:

@@ -62,7 +62,7 @@ def extend_add(F, C, idx, pos):
             and pos.is_contiguous()):
         raise ValueError("extend_add: tensors must be contiguous")
     lib = _build.load("extend_add", {fn: _SIG for fn in _FN.values()})
-    stream = torch.cuda.current_stream(F.device).cuda_stream
+    stream = _build.stream(F.device)
     err = getattr(lib, _FN[F.dtype])(
         F.data_ptr(), C.data_ptr(), idx.data_ptr(), pos.data_ptr(),
         nf, p, u, stream)

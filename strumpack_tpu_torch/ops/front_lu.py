@@ -29,6 +29,7 @@ library route replaces tiny diagonal entries of U *after* the LU.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -53,7 +54,11 @@ _SIG = (ctypes.c_int, [ctypes.c_void_p] * 5 + [
 _FN2 = {torch.float32: "small_lu_f32", torch.float64: "small_lu_f64"}
 _SIG2 = (ctypes.c_int, [ctypes.c_void_p] * 3 + [
     ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_double,
-    ctypes.c_int, ctypes.c_void_p])
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+_SIGS = {fn: _SIG for fn in _FN.values()}
+_SIGS2 = {fn: _SIG2 for fn in _FN2.values()}
+K2_THREADS = 256            # threads of one K2 CTA, at most
+H100_SMS = 132
 
 
 def _replace_tiny(piv, th):
@@ -113,6 +118,24 @@ def factor_bucket_plain(F, thresh, s_pad, pivot=True):
     return torch.gather(G, 1, pj[:, :, None].expand(nf, p, p)), pr
 
 
+def k2_layout(p, nf, sms=H100_SMS):
+    """K2's launch choice for nf fronts of p <= 64 rows: (width bucket,
+    fronts per CTA).  One thread per row holds the row in registers: a
+    front of p <= 32 is one warp, of 32 < p <= 64 two warps.  A CTA packs
+    up to 8 or 4 fronts (256 threads), but only as many as it takes to
+    give each of the card's ``sms`` SMs a CTA: fronts that share a CTA
+    share its SM's issue slots."""
+    if not 0 < p <= MAX_PALLAS_P:
+        raise ValueError(f"K2 takes 0 < p <= {MAX_PALLAS_P}, not {p}")
+    wb = 32 if p <= 32 else 64
+    return wb, max(1, min(K2_THREADS // wb, -(-nf // sms)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def factor_bucket(F, thresh, s_pad, pivot=True):
     """K2: batched elimination of the ``s_pad`` leading columns of the
     fronts F [nf, p, p], p <= 64, CB included.  Returns (packed [nf,p,p],
@@ -127,13 +150,14 @@ def factor_bucket(F, thresh, s_pad, pivot=True):
     if p != p2 or not 0 < s_pad <= p or p > MAX_PALLAS_P:
         raise ValueError(f"factor_bucket: F{tuple(F.shape)}, s={s_pad} "
                          f"(the kernel takes 0 < s <= p <= {MAX_PALLAS_P})")
+    wb, fpc = k2_layout(p, nf, _sm_count(F.device.index))
     packed = torch.empty_like(F)
     perm = torch.empty((nf, s_pad), dtype=torch.int64, device=F.device)
-    lib = _build.load("small_lu", {fn: _SIG2 for fn in _FN2.values()})
-    stream = torch.cuda.current_stream(F.device).cuda_stream
+    lib = _build.load("small_lu", _SIGS2)
+    stream = _build.stream(F.device)
     err = getattr(lib, _FN2[F.dtype])(
         F.data_ptr(), packed.data_ptr(), perm.data_ptr(), nf, p, s_pad,
-        float(thresh), int(bool(pivot)), stream)
+        float(thresh), int(bool(pivot)), wb, fpc, stream)
     _build.check(lib, "small_lu", err)
     factor_bucket.launches += 1
     return packed, perm
@@ -261,8 +285,8 @@ def partial_factor(F, thresh, s, pivot=True):
     L21 = torch.empty((nf, u, s), dtype=F.dtype, device=F.device)
     U12 = torch.empty((nf, s, u), dtype=F.dtype, device=F.device)
     perm = torch.empty((nf, s), dtype=torch.int64, device=F.device)
-    lib = _build.load("front_lu", {fn: _SIG for fn in _FN.values()})
-    stream = torch.cuda.current_stream(F.device).cuda_stream
+    lib = _build.load("front_lu", _SIGS)
+    stream = _build.stream(F.device)
     err = getattr(lib, _FN[F.dtype])(
         F.data_ptr(), lu.data_ptr(), L21.data_ptr(), U12.data_ptr(),
         perm.data_ptr(), nf, p, s, float(thresh), int(bool(pivot)), stream)

@@ -4,8 +4,9 @@
   ``strumpack_tpu/ops/pallas_panel_lu.py`` (``pallas_panel_lu`` ->
   ``_panel_kernel``): one full-height ``[p, w]`` panel per front, w <= 128,
   logical partial pivoting restricted to rows ``[row0, slim)``.  The CUDA
-  kernel is ``csrc/panel_lu.cu`` (a shared-memory and a global-memory
-  variant, chosen by shape); ``panel_lu_plain`` is its plain version.
+  kernel is ``csrc/panel_lu.cu`` (rows in registers on one CTA or on a
+  cluster of CTAs, or a global-memory design for the tallest panels,
+  chosen by ``design``); ``panel_lu_plain`` is its plain version.
 * ``blocked_factor_bucket``: the JAX package's blocked LU over K4.
   Between panels it applies the panel's row permutation (one gather), the
   unit-lower triangular solve and the Schur GEMM as library calls.
@@ -30,25 +31,28 @@ _FN = {torch.float32: "panel_lu_f32", torch.float64: "panel_lu_f64"}
 _SIG = (ctypes.c_int, [ctypes.c_void_p] * 3 + [
     ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-# shared memory the kernel declares statically (reduction slots), kept
-# free when choosing the variant
-_STATIC_SMEM = 1024
+_SIGS = {fn: _SIG for fn in _FN.values()}
+K4_THREADS = 256            # threads of one K4 CTA
+MAX_CLUSTER = 16            # CTAs of a non-portable Hopper cluster
+DESIGNS = ("cta", "cluster", "global")
 
 
-def smem_bytes(p, w, itemsize, shared):
-    """Dynamic shared memory of one K4 block: multipliers [p], pivot row
-    [w], row flags [p], and with ``shared`` the padded panel [p, w+1]."""
-    b = itemsize * (p + w) + p
-    if shared:
-        b = -(-b // itemsize) * itemsize + itemsize * p * (w + 1)
-    return b
-
-
-def variant(p, w, itemsize):
-    """'shared' when the panel fits a block's shared memory, else
-    'global'."""
-    fits = smem_bytes(p, w, itemsize, True) + _STATIC_SMEM <= FL.SMEM_LIMIT
-    return "shared" if fits else "global"
+def design(p, w, itemsize, row0=0):
+    """K4's launch choice for a panel [p, w] whose rows >= row0 are
+    eliminated: (design, cluster size).  The register design holds one row
+    per thread (f32) or per two threads (f64), so a CTA of 256 threads
+    holds 256 or 128 rows: "cta" when one CTA holds the p - row0 rows,
+    "cluster" of c <= 16 CTAs when c of them do, else "global" (the panel
+    eliminated in device memory; cluster size 0)."""
+    if not 0 < w <= PANEL_W or itemsize not in (4, 8):
+        raise ValueError(f"K4 takes 0 < w <= {PANEL_W} in f32 or f64")
+    rows = K4_THREADS // (itemsize // 4)
+    c = -(-(p - row0) // rows)
+    if c <= 1:
+        return "cta", 1
+    if c <= MAX_CLUSTER:
+        return "cluster", c
+    return "global", 0
 
 
 def panel_lu_plain(panel, thresh, row0, w, slim, pivot=True):
@@ -92,7 +96,7 @@ def panel_lu(panel, thresh, row0, w, slim, pivot=True):
     block at rows row0..row0+w, pivots from rows [row0, slim)).  CPU
     tensors take the plain version; CUDA tensors launch the kernel
     (``panel_lu.launches`` counts launches, ``panel_lu.variants`` them by
-    variant)."""
+    design)."""
     if panel.device.type == "cpu":
         return panel_lu_plain(panel, thresh, row0, w, slim, pivot)
     FL._check_kernel_input(panel, "panel_lu")
@@ -103,14 +107,14 @@ def panel_lu(panel, thresh, row0, w, slim, pivot=True):
                          f"row0={row0}, slim={slim} (the kernel takes "
                          f"w <= {PANEL_W}, p <= {MAX_PANEL_P}, "
                          "row0 + w <= slim <= p)")
-    kind = variant(p, w, panel.element_size())
+    kind, c = design(p, w, panel.element_size(), row0)
     out = torch.empty_like(panel)
     pr = torch.empty((nf, w), dtype=torch.int64, device=panel.device)
-    lib = _build.load("panel_lu", {fn: _SIG for fn in _FN.values()})
-    stream = torch.cuda.current_stream(panel.device).cuda_stream
+    lib = _build.load("panel_lu", _SIGS)
+    stream = _build.stream(panel.device)
     err = getattr(lib, _FN[panel.dtype])(
         panel.data_ptr(), out.data_ptr(), pr.data_ptr(), nf, p, w, row0,
-        slim, float(thresh), int(bool(pivot)), int(kind == "shared"), stream)
+        slim, float(thresh), int(bool(pivot)), c, stream)
     _build.check(lib, "panel_lu", err)
     panel_lu.launches += 1
     panel_lu.variants[kind] += 1
@@ -118,7 +122,7 @@ def panel_lu(panel, thresh, row0, w, slim, pivot=True):
 
 
 panel_lu.launches = 0
-panel_lu.variants = {"shared": 0, "global": 0}
+panel_lu.variants = dict.fromkeys(DESIGNS, 0)
 
 
 def panel_perm(pr, p, row0, w):

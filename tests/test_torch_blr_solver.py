@@ -130,3 +130,29 @@ def test_bicgstab_solves(pair):
         port.opts.krylov_solver = st.KrylovSolver.AUTO
     assert rc == st.ReturnCode.SUCCESS
     assert A.max_scaled_residual(x, b) < 1e2 * port.opts.rel_tol
+
+
+def test_batched_lu_shapes_are_the_calls(pair, monkeypatch):
+    """PlanDev.batched_lu_shapes lists the (nf, t) of every batched_lu call
+    of one factorization, in order, and the K2/K4 launch counts follow
+    from it."""
+    from strumpack_tpu_torch.frontal import blr as st_blr
+    from strumpack_tpu_torch.ops import front_lu as FL
+    port = pair["port"]
+    calls = []
+    real = st_blr.batched_lu
+
+    def recording(F, *a, **k):
+        calls.append(tuple(F.shape[:2]))
+        return real(F, *a, **k)
+
+    monkeypatch.setattr(st_blr, "batched_lu", recording)
+    port._factored = False
+    port.factor()
+    shapes = port.pdev.batched_lu_shapes()
+    assert calls == shapes * port.factor_passes and shapes
+    dense = port.pdev.k2_dense_shapes()
+    assert port.pdev.k2_launches() == len(dense) + sum(
+        t <= FL.MAX_PALLAS_P for _, t in shapes)
+    assert all(p <= FL.MAX_PALLAS_P and not FL.use_cross(s, p, nf)
+               for nf, p, s in dense)

@@ -77,15 +77,40 @@ def test_front_lu_kernel_without_pivoting(cuda_device, dtype):
     assert torch.equal(got[1].cpu(), torch.arange(16).expand(50, 16))
 
 
+def _assert_same_with_nan(got, want, nan_front):
+    """Every front but ``nan_front`` bit for bit.  On ``nan_front`` the
+    values equal wherever the plain version's are finite, and the kernel
+    has NaN only where the plain version has: K4 copies the rows < row0
+    through (its global design also leaves pivoted rows alone), while the
+    plain version subtracts 0 * (pivot row) from them, which is NaN once
+    the pivot row holds a NaN or an inf."""
+    keep = torch.ones(got.shape[0], dtype=torch.bool, device=got.device)
+    keep[nan_front] = False
+    assert torch.equal(got[keep], want[keep])
+    g, w = got[nan_front], want[nan_front]
+    fin = torch.isfinite(w)
+    assert torch.equal(g[fin], w[fin])
+    assert not (torch.isnan(g) & ~torch.isnan(w)).any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("nf,p,s,pivot", [(300, 52, 4, True),
+@pytest.mark.parametrize("nf,p,s,pivot", [(301, 52, 4, True),
+                                          (1001, 30, 30, True),
                                           (16, 64, 64, True),
                                           (16, 64, 64, False),
-                                          (5, 28, 28, True)])
+                                          (5, 28, 28, True),
+                                          (13, 30, 7, True),
+                                          (13, 32, 32, False),
+                                          (9, 40, 40, True),
+                                          (7, 33, 12, False),
+                                          (1, 64, 64, True)])
 def test_small_lu_kernel_matches_plain(cuda_device, dtype, nf, p, s, pivot):
     """K2 repeats its plain version's rounding: perm and the packed front
-    agree exactly, the zero pivot of front 0 included."""
+    agree exactly, the zero pivot of front 0 included.  The shapes cover
+    both layouts (one warp per front for p <= 32, two above), nf not a
+    multiple of the fronts per CTA (3 and 8 at nf = 301 and 1001), s < p
+    and s = p."""
     gen = torch.Generator(device="cpu").manual_seed(nf + p + s)
     F = torch.randn(nf, p, p, dtype=dtype, generator=gen)
     if not pivot:
@@ -101,24 +126,80 @@ def test_small_lu_kernel_matches_plain(cuda_device, dtype, nf, p, s, pivot):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nf,p,w,row0,dtype,kind", [
-    (64, 96, 96, 0, torch.float32, "shared"),
-    (8, 256, 128, 128, torch.float32, "shared"),
-    (8, 256, 128, 0, torch.float64, "global"),
-    (2, 2048, 128, 0, torch.float32, "global")])
-def test_panel_lu_kernel_matches_plain(cuda_device, nf, p, w, row0, dtype,
-                                       kind):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p,s", [(24, 24), (52, 20), (64, 64)])
+def test_small_lu_kernel_ties_and_nan(cuda_device, dtype, p, s):
+    """Integer-valued fronts (many equal magnitudes: the lower row must
+    win every tie) and a front with a NaN (NaN beats every number): perm
+    identical to the plain version's, values bit for bit (K2 subtracts
+    0 * (pivot row) from frozen rows as the plain version does, so a NaN
+    spreads alike)."""
+    rng = np.random.default_rng(p + s)
+    F = torch.from_numpy(rng.integers(-2, 3, size=(11, p, p))).to(dtype)
+    F[3, 5, 2] = float("nan")
+    F = F.to(cuda_device)
+    got = FL.factor_bucket(F, 1e-4, s)
+    want = FL.factor_bucket_plain(F, 1e-4, s)
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0,
+                               equal_nan=True)
+
+
+# (nf, p, w, row0, slim, dtype, design, cluster size): every design, each
+# width bucket, row0 > 0 with slim < p, f64's two threads per row
+K4_CASES = [
+    (64, 96, 96, 0, 96, torch.float32, "cta", 1),
+    (8, 256, 128, 0, 256, torch.float32, "cta", 1),
+    (8, 256, 128, 128, 256, torch.float32, "cta", 1),
+    (16, 192, 64, 128, 192, torch.float32, "cta", 1),
+    (5, 200, 64, 64, 160, torch.float32, "cta", 1),
+    (3, 100, 20, 10, 90, torch.float64, "cta", 1),
+    (8, 256, 128, 0, 256, torch.float64, "cluster", 2),
+    (4, 300, 96, 30, 280, torch.float64, "cluster", 3),
+    (2, 2048, 128, 0, 2048, torch.float32, "cluster", 8),
+    (1, 4096, 128, 0, 4096, torch.float32, "cluster", 16),
+    (1, 8192, 128, 0, 8192, torch.float32, "global", 0),
+    (2, 4096, 64, 0, 4096, torch.float64, "global", 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pivot", [True, False])
+@pytest.mark.parametrize("nf,p,w,row0,slim,dtype,kind,c", K4_CASES)
+def test_panel_lu_kernel_matches_plain(cuda_device, nf, p, w, row0, slim,
+                                       dtype, kind, c, pivot):
     gen = torch.Generator(device="cpu").manual_seed(p + row0)
     panel = torch.randn(nf, p, w, dtype=dtype, generator=gen)
+    if not pivot:
+        panel[:, row0:row0 + w] += 2 * p * torch.eye(w, dtype=dtype)
     panel[0, :, 0] = 0.0
     panel = panel.to(cuda_device)
-    assert PP.variant(p, w, panel.element_size()) == kind
+    assert PP.design(p, w, panel.element_size(), row0) == (kind, c)
     before = dict(PP.panel_lu.variants)
-    got = PP.panel_lu(panel, 1e-4, row0, w, p)
+    got = PP.panel_lu(panel, 1e-4, row0, w, slim, pivot)
     assert PP.panel_lu.variants[kind] == before[kind] + 1
-    want = PP.panel_lu_plain(panel, 1e-4, row0, w, p)
+    want = PP.panel_lu_plain(panel, 1e-4, row0, w, slim, pivot)
     assert torch.equal(got[1], want[1])
     assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nf,p,w,row0,slim,dtype,kind,c",
+                         [K4_CASES[i] for i in (1, 4, 6, 8, 11)])
+def test_panel_lu_kernel_ties_and_nan(cuda_device, nf, p, w, row0, slim,
+                                      dtype, kind, c):
+    """Integer-valued panels (ties everywhere: the lower row wins, across
+    warps and across the CTAs of a cluster too) and a NaN in one column
+    (NaN beats every number): pivot rows as the plain version's, values
+    as ``_assert_same_with_nan`` says."""
+    rng = np.random.default_rng(p + w)
+    panel = torch.from_numpy(rng.integers(-2, 3, size=(nf, p, w))).to(dtype)
+    panel[-1, p - 3, 5] = float("nan")
+    panel = panel.to(cuda_device)
+    got = PP.panel_lu(panel, 1e-4, row0, w, slim)
+    want = PP.panel_lu_plain(panel, 1e-4, row0, w, slim)
+    assert torch.equal(got[1], want[1])
+    _assert_same_with_nan(got[0], want[0], nf - 1)
 
 
 @pytest.mark.cuda

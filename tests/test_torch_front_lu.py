@@ -185,3 +185,19 @@ def test_cross_plain_without_pivoting():
             np.testing.assert_allclose(a.numpy(), b, rtol=0,
                                        atol=1e-5 * np.abs(b).max(),
                                        err_msg=name)
+
+
+@pytest.mark.parametrize("p,nf,want", [
+    (28, 1, (32, 1)), (32, 256, (32, 2)), (32, 5000, (32, 8)),
+    (33, 16, (64, 1)), (64, 16, (64, 1)), (52, 2048, (64, 4)),
+    (64, 264, (64, 2)), (64, 265, (64, 3))])
+def test_k2_layout_by_p_and_nf(p, nf, want):
+    """K2 holds one row a thread: one warp a front up to 32 rows, two up
+    to 64; a CTA packs up to 8 or 4 fronts, as many as it takes to give
+    each of the H100's 132 SMs a CTA."""
+    assert FL.k2_layout(p, nf) == want
+
+
+def test_k2_layout_rejects_wide_fronts():
+    with pytest.raises(ValueError):
+        FL.k2_layout(65, 1)

@@ -118,3 +118,39 @@ def test_batched_lu_tiles_against_lapack():
             L = np.tril(lu[f], -1) + np.eye(m)
             np.testing.assert_allclose(L @ np.triu(lu[f]), A[f][perm[f]],
                                        rtol=0, atol=1e-13 * m)
+
+
+# Every panel of the blr50 tile LUs (tiles t = 96, 128, 192, 256, cut into
+# 128-wide panels as blocked_factor_bucket cuts them): f32, one CTA each.
+BLR50_PANELS = [(96, 96, 0), (128, 128, 0), (192, 128, 0), (192, 64, 128),
+                (256, 128, 0), (256, 128, 128)]
+
+
+@pytest.mark.parametrize("p,w,row0", BLR50_PANELS)
+def test_k4_design_of_blr_panels(p, w, row0):
+    assert PP.design(p, w, 4, row0) == ("cta", 1)
+
+
+@pytest.mark.parametrize("p,w,row0,itemsize,want", [
+    (256, 128, 0, 8, ("cluster", 2)),      # f64: 128 rows a CTA
+    (256, 128, 128, 8, ("cta", 1)),
+    (300, 96, 30, 8, ("cluster", 3)),
+    (257, 128, 0, 4, ("cluster", 2)),
+    (2048, 128, 0, 4, ("cluster", 8)),
+    (4096, 128, 0, 4, ("cluster", 16)),    # the largest (non-portable) cluster
+    (4097, 128, 0, 4, ("global", 0)),
+    (8192, 128, 0, 4, ("global", 0)),
+    (2048, 64, 0, 8, ("cluster", 16)),
+    (4096, 64, 0, 8, ("global", 0))])
+def test_k4_design_by_shape(p, w, row0, itemsize, want):
+    """One CTA holds 256 rows in f32 (one thread a row) or 128 in f64 (two
+    threads a row); a cluster of up to 16 CTAs holds more; the rest is
+    eliminated in global memory."""
+    assert PP.design(p, w, itemsize, row0) == want
+
+
+def test_k4_design_rejects_what_no_design_takes():
+    with pytest.raises(ValueError):
+        PP.design(256, 129, 4)
+    with pytest.raises(ValueError):
+        PP.design(256, 64, 2)
