@@ -7,16 +7,20 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: CUDA present; card name and power limit, torch/CUDA versions;
 2. build: the four CUDA kernels compiled from csrc/ with nvcc for sm_90a,
-   one nvcc per source, all started together;
+   one nvcc per source, all started together; K2's, K3's and K4's ptxas
+   report checked for spills; K3's capacity as its wrapper states it (the
+   routing's) held against the kernel's own;
 3. each kernel against its plain PyTorch version on the card, at shapes of
    the main paths: K1 (extend-add) bit-exact on real 64^3 plan maps, with
-   one index_add_ as its yardstick; K3 (cross-shape front LU) by the
-   layered checks below; K2 (small-front LU) and K4 (panel LU) bit-exact
+   one index_add_ as its yardstick; K3 (cross-shape front LU) bit-exact
+   at every shape exact64, exact32, blr50 (f32) and f64_32 (f64) launch,
+   each timed as the kernel alone (profiler device time), the wrapper's
+   host time, the wrapper with the Schur GEMM and the library route (the
+   routing table); K2 (small-front LU) and K4 (panel LU) bit-exact
    at every shape one blr50 factorization launches and at the shapes of
    the other designs (K4 on one CTA, on clusters of 2, 8 and 16 CTAs, in
    global memory), and the blocked LU over K4; kernel, plain and library
-   times by CUDA events (median of 15 after 3 warm-ups); K2's and K4's
-   ptxas report checked for spills in phase 2;
+   times by CUDA events (median of 15 after 3 warm-ups);
 4. exact32: Poisson 32^3, f32 factor + f32 iterative refinement to 1e-5;
 5. exact64: Poisson 64^3, the same, plus peak device memory;
 6. f64: Poisson 32^3 in float64 (the kernels' double instantiation);
@@ -361,40 +365,116 @@ def check_blocked(torch, rng, nf, m, dtype):
     return rec
 
 
-def k3_flops(nf, p, s):
-    """Elimination (divisions + rank-1 updates of A and B) and Schur GEMM."""
+def k3_flops(nf, p, s, schur=True):
+    """Elimination (divisions + rank-1 updates of A and B) and, with
+    ``schur``, the Schur GEMM."""
     u = p - s
     k = np.arange(s)
     elim = ((p - k - 1) + 2 * (p - k - 1) * (s - k - 1)
             + 2 * (s - k - 1) * u).sum()
-    return nf * (int(elim) + 2 * u * u * s)
+    return nf * (int(elim) + (2 * u * u * s if schur else 0))
 
 
-def check_k3(torch, rng, nf, p, s, dtype):
+def k3_bounds(nf, p, s, dtype):
+    """(bound ms, by) of K3 with the Schur GEMM (F read once, lu + L21 +
+    U12 + CB + perm written once) and of the kernel alone
+    (A and B read once, lu + L21 + U12 + perm written once)."""
+    isz = np.dtype(dtype).itemsize
+    out = []
+    for nbytes, flops in (
+            (nf * (isz * 2 * p * p + 8 * s), k3_flops(nf, p, s)),
+            (nf * (isz * 2 * (p * s + s * (p - s)) + 8 * s),
+             k3_flops(nf, p, s, schur=False))):
+        tb = nbytes / PEAK_BYTES * 1e3
+        tf = flops / PEAK_FLOPS[dtype] * 1e3
+        out.append((max(tb, tf), "bytes" if tb >= tf else "operations"))
+    return out
+
+
+def device_ms(torch, fn, pattern, reps=10, tries=3):
+    """Device milliseconds per call of the kernels whose name holds
+    ``pattern``, over ``reps`` calls of ``fn`` after one warm-up
+    (torch.profiler over CUPTI).  A trace now and then holds none of the
+    kernels (seen on the card host once in ~100 traces): it is taken
+    again, up to ``tries`` times; None when none had them (not
+    measured)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+                 for ev in prof.key_averages() if pattern in ev.key)
+        if us:
+            return us / 1e3 / reps
+    return None
+
+
+def host_ms(torch, fn, reps=50):
+    """Median host milliseconds of one call of ``fn`` over ``reps`` calls
+    (perf_counter, the device idle before each call and nothing waited
+    for after it): what the call costs the host to enqueue its work."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e3
+
+
+def time_k3(torch, FL, F, thresh, s):
+    """K3's times on the fronts F through the module ``FL`` (this tree's
+    ops/front_lu.py or another version's): the wrapper with the Schur GEMM
+    (CUDA events, host time before the launch included), its host time
+    alone, the kernel alone (device time), the Schur GEMM alone and the
+    library route (events)."""
+    k = FL.partial_factor(F, thresh, s)
+    return dict(
+        ms=cuda_ms(lambda: FL.partial_factor(F, thresh, s), torch),
+        host_ms=host_ms(torch, lambda: FL.partial_factor(F, thresh, s)),
+        kernel_ms=device_ms(torch, lambda: FL.partial_factor(F, thresh, s),
+                            "lu_cross_kernel"),
+        schur_ms=cuda_ms(lambda: torch.baddbmm(F[:, s:, s:], k[2], k[3],
+                                               alpha=-1), torch),
+        library_ms=cuda_ms(lambda: FL.library_factor(F, thresh, s), torch))
+
+
+def k3_fronts(torch, rng, nf, p, dtype):
+    Fn = rng.standard_normal((nf, p, p)).astype(dtype)
+    Fn[0, :, 0] = 0.0          # front 0: a zero pivot, replaced by thresh
+    return torch.from_numpy(Fn).cuda()
+
+
+def check_k3(torch, rng, nf, p, s, dtype, buckets=None):
+    """K3 against its plain version: perm, lu, L21, U12 (and the CB, one
+    GEMM on equal inputs) bit for bit, the zero pivot of front 0 replaced,
+    backward error; then its times and the library route's.
+    ``buckets``: {cell: buckets of this shape in one factorization}, each
+    a K3 launch."""
     from strumpack_tpu_torch.ops import front_lu as FL
     eps = float(np.finfo(dtype).eps)
     thresh = float(np.sqrt(eps))
-    Fn = rng.standard_normal((nf, p, p)).astype(dtype)
-    Fn[0, :, 0] = 0.0          # front 0: a zero pivot, replaced by thresh
-    F = torch.from_numpy(Fn).cuda()
+    F = k3_fronts(torch, rng, nf, p, dtype)
     k = FL.partial_factor(F, thresh, s)
     q = FL.partial_factor_plain(F, thresh, s)
     torch.cuda.synchronize()
     names = ("lu", "perm", "L21", "U12", "CB")
-    # layer 1: permutations.  The kernel repeats the plain version's
-    # rounding, so a flip would mean a bug; 99.9% leaves room for FMA-level
-    # differences should the arithmetic ever change.
     same = (k[1] == q[1]).all(dim=1)
     flips = int((~same).sum())
-    check(float(same.float().mean()) >= 0.999,
-          f"K3 perm agreement {nf - flips}/{nf}")
-    # layer 2: values on fronts with equal perm, relative to each output's
-    # largest entry on the front: an operation-order change gives errors
-    # of order s * eps * growth, well under these tolerances
+    check(flips == 0, f"K3 perm identical ({flips} fronts differ) at "
+          f"{(nf, p, s, dtype)}")
+    for n, a, b in zip(names, k, q):
+        check(torch.equal(a, b), f"K3 {n} bit-exact at {(nf, p, s, dtype)}")
+    err = max(float((a - b).abs().max()) for a, b in zip(k, q) if a.numel())
     tol = 1e-5 if dtype == "float32" else 1e-12
-    err = compare([f"K3 {n}" for n in names if n != "perm"],
-                  k[:1] + k[2:], q[:1] + q[2:], same, tol)
-    # layer 3: backward error on every front without a replaced pivot
+    # backward error, the replaced pivots' own entries left out
     lu, L21, U12 = (k[i].double() for i in (0, 2, 3))
     perm = k[1]
     L11 = torch.tril(lu, -1) + torch.eye(s, dtype=torch.float64,
@@ -405,42 +485,59 @@ def check_k3(torch, rng, nf, p, s, dtype):
                                  perm[:, :, None].expand(-1, -1, s)),
                     Fd[:, s:, :s]], dim=1)
     P2 = torch.gather(Fd[:, :s, s:], 1, perm[:, :, None].expand(-1, -1, p - s))
-    be = backward_errors(torch, P1, P2, L11, L21, U, U12)
-    replaced = (torch.diagonal(U, dim1=1, dim2=2).abs()
-                == float(np.asarray(thresh, dtype))).any(dim=1)
+    rep = (torch.diagonal(U, dim1=1, dim2=2).abs()
+           == float(np.asarray(thresh, dtype)))
+    replaced = rep.any(dim=1)
     check(bool(replaced[0]), "K3 front 0 has its zero pivot replaced")
-    ok = ~replaced
-    check(bool((be[ok] <= tol).all()),
-          f"K3 backward error {float(be[ok].max()):.3g}")
-    del lu, L21, U12, L11, U, Fd, P1, P2
+    be = backward_errors(torch, P1, P2, L11, L21, U, U12, skip=rep)
+    check(bool((be <= tol).all()), f"K3 backward error {float(be.max()):.3g}")
+    del k, q, lu, L21, U12, L11, U, Fd, P1, P2
 
-    ms = cuda_ms(lambda: FL.partial_factor(F, thresh, s), torch)
-    plain = cuda_ms(lambda: FL.partial_factor_plain(F, thresh, s), torch)
-
-    # yardstick: lu_factor + pivot conversion + 2 solve_triangular + GEMM,
-    # the port's library route, which never takes these K3 buckets
-    lib = cuda_ms(lambda: FL.library_factor(F, thresh, s), torch)
-    schur = cuda_ms(lambda: torch.baddbmm(F[:, s:, s:], k[2], k[3],
-                                          alpha=-1), torch)
-    # F read once (p^2), lu + L21 + U12 + CB written once (p^2), perm
-    nbytes = nf * (np.dtype(dtype).itemsize * 2 * p * p + 8 * s)
-    flops = k3_flops(nf, p, s)
-    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
-    rec = dict(nf=nf, p=p, s=s, dtype=dtype, perm_flips=flips,
-               replaced_fronts=int(replaced.sum()), max_abs_err=err,
-               backward_error=float(be[ok].max()), ms=ms, schur_ms=schur, plain_ms=plain, library_ms=lib,
-               bound_ms=max(tb, tf), bound_by="bytes" if tb >= tf
-               else "operations")
+    # ms: the wrapper with the Schur GEMM, as the solver calls it;
+    # library: lu_factor + pivot conversion + 2 solve_triangular + GEMM,
+    # the port's library route on the same fronts
+    rec = dict(nf=nf, p=p, s=s, dtype=dtype,
+               layout=FL.k3_layout(p, s, nf, F.element_size(),
+                                   torch.cuda.get_device_properties(0)
+                                   .multi_processor_count),
+               buckets=buckets or {}, replaced_fronts=int(replaced.sum()),
+               max_abs_err=err, backward_error=float(be.max()))
+    rec.update(time_k3(torch, FL, F, thresh, s))
+    rec["plain_ms"] = cuda_ms(
+        lambda: FL.partial_factor_plain(F, thresh, s), torch, warmup=1,
+        reps=3)
+    (rec["bound_ms"], rec["bound_by"]), (rec["kernel_bound_ms"],
+                                         rec["kernel_bound_by"]) = \
+        k3_bounds(nf, p, s, dtype)
     print("K3", json.dumps(rec), flush=True)
     return rec
 
 
+def k3_shapes(plans, dtype):
+    """The K3 check list: the shape of every dense bucket of the plans
+    ({cell: PlanDev}) that K3 factors in ``dtype`` (``PlanDev.k3_shapes``),
+    with its buckets per factorization by cell; and the library route's
+    shapes of s <= 128, which K3 does not hold, by cell."""
+    import torch
+    dtype = getattr(torch, dtype)
+    shapes, refused = {}, {}
+    for cell, pdev in plans.items():
+        for key in pdev.k3_shapes(dtype):
+            shapes.setdefault(key, {}).setdefault(cell, 0)
+            shapes[key][cell] += 1
+        for key in pdev.library_shapes(dtype):
+            if key[2] <= 128:
+                refused.setdefault(key, {}).setdefault(cell, 0)
+                refused[key][cell] += 1
+    return shapes, refused
+
+
 def ptxas_report(log):
     """(kernel, registers, stack, spill stores, spill loads) of every
-    K2 and K4 instantiation in ptxas's -v output, by source."""
+    K2, K3 and K4 instantiation in ptxas's -v output, by source."""
     import re
     rows = []
-    for src in ("small_lu", "panel_lu"):
+    for src in ("small_lu", "front_lu", "panel_lu"):
         name = None
         for line in log.get(src, "").splitlines():
             m = re.search(r"entry function '(\S+)'", line)
@@ -453,29 +550,29 @@ def ptxas_report(log):
                 st = tuple(int(x) for x in m.groups())
             m = re.search(r"Used (\d+) registers", line)
             if m and name:
-                short = re.sub(r"^.*?(small_lu_kernel|panel_lu_reg|"
-                               r"panel_lu_global)", r"\1", name)
+                short = re.sub(r"^.*?(small_lu_kernel|lu_cross_kernel|"
+                               r"panel_lu_reg|panel_lu_global)", r"\1", name)
                 rows.append((short, int(m.group(1))) + st)
                 name = None
     return rows
 
 
-def blr_shapes(pdev):
-    """K2 and K4 shapes of one factorization of a BLR plan, each with the
-    number of launches: K2 (nf, p, s) of the dense buckets and of the tile
-    LUs of t <= 64; K4 (nf, p, w, row0) of each panel of the tile LUs of
-    t > 64, as blocked_factor_bucket cuts them."""
+def blr_shapes(pdev, dtype):
+    """K2 and K4 shapes of one factorization of a BLR plan in ``dtype``,
+    each with the number of launches: K2 (nf, p, s) of the dense buckets
+    and of the tile LUs of t <= 64; K4 (nf, p, w, row0) of each panel of
+    the tile LUs of t > 64, as blocked_factor_bucket cuts them."""
     from collections import Counter
     from strumpack_tpu_torch.ops import front_lu as FL
     from strumpack_tpu_torch.ops import panel_lu as PP
-    k2, k4 = Counter(pdev.k2_dense_shapes()), Counter()
+    k2, k4 = Counter(pdev.k2_dense_shapes(dtype)), Counter()
     for nf, t in pdev.batched_lu_shapes():
         if t <= FL.MAX_PALLAS_P:
             k2[(nf, t, t)] += 1
         elif t <= PP.MAX_PANEL_P:
             for jb in range(0, t, PP.PANEL_W):
                 k4[(nf, t, min(PP.PANEL_W, t - jb), jb)] += 1
-    check(sum(k2.values()) == pdev.k2_launches()
+    check(sum(k2.values()) == pdev.k2_launches(dtype)
           and sum(k4.values()) == pdev.k4_launches(),
           "blr50 K2/K4 shapes add up to the plan's launches")
     return k2, k4
@@ -535,9 +632,13 @@ def make_solver(nx, dtype, rel_tol, blr=False):
     return A, s, time.perf_counter() - t0
 
 
-# kernel wrapper -> the plan's launches of one factorization
-PLAN_LAUNCHES = dict(extend_add="ea_pairs", front_lu_cross="k3_buckets",
-                     small_lu="k2_launches", panel_lu="k4_launches")
+def plan_launches(pdev, dtype):
+    """Kernel wrapper -> the plan's launches of one factorization in
+    ``dtype``."""
+    return dict(extend_add=pdev.ea_pairs(),
+                front_lu_cross=pdev.k3_buckets(dtype),
+                small_lu=pdev.k2_launches(dtype),
+                panel_lu=pdev.k4_launches())
 
 
 def run_solver(torch, name, A, s, t_reorder, seed, res_tol=None,
@@ -570,7 +671,7 @@ def run_solver(torch, name, A, s, t_reorder, seed, res_tol=None,
     x, rc = s.solve(b)
     t_solve = time.perf_counter() - t0
     counts = read_counts()
-    want = {k: getattr(pdev, fn)() for k, fn in PLAN_LAUNCHES.items()}
+    want = plan_launches(pdev, getattr(torch, s.opts.factor_dtype))
     for k, n in want.items():
         check(counts[k] == n * passes,
               f"{name}: {k} launches {counts[k]} == plan {n} x {passes}")
@@ -748,28 +849,47 @@ def main():
     secs = _build.build(verbose=True, log=log)
     print(f"build {time.perf_counter() - t0:.2f} s {json.dumps(secs)}",
           flush=True)
-    # K2 and K4 hold their rows in registers: no instantiation may spill
+    # K2, K3 and K4 hold rows in registers: no instantiation may spill
     ptxas = ptxas_report(log)
     for kname, regs, stack, sst, sld in ptxas:
         print(f"ptxas {kname[:60]:60s} {regs:4d} registers, stack {stack}, "
               f"spill {sst}/{sld}")
         check(stack == sst == sld == 0, f"{kname}: no stack or spill")
     if not ptxas:
-        print("ptxas: K2/K4 not rebuilt in this run, spill check not made")
+        print("ptxas: K2/K3/K4 not rebuilt in this run, spill check not made")
+    # the routing (ops/front_lu.py) keeps a copy of what K3 holds
+    from strumpack_tpu_torch.ops import front_lu as FL
+    drift = FL.k3_capacity_drift()
+    check(not drift, f"K3's capacity in front_lu.py matches front_lu.cu: "
+          f"{len(drift)} differ, e.g. {drift[:3]}")
+    print("K3 capacity: front_lu.py agrees with front_lu.cu", flush=True)
 
     phase("3 kernels against their plain versions")
     A64, s64, t_reorder64 = make_solver(64, "float32", 1e-5)
-    print(f"exact64 reorder {t_reorder64:.2f} s", flush=True)
+    A32, s32, t_reorder32 = make_solver(32, "float32", 1e-5)
+    Ad, sd, t_reorderd = make_solver(32, "float64", None)
+    A50, s50, t_reorder50 = make_solver(50, "float32", 1e-4, blr=True)
+    print(f"reorder s: exact64 {t_reorder64:.2f}, exact32 {t_reorder32:.2f}, "
+          f"f64_32 {t_reorderd:.2f}, blr50 {t_reorder50:.2f}", flush=True)
     rng = np.random.default_rng(20261016)
     k1 = check_k1(torch, s64.pdev, rng)
-    k3 = [check_k3(torch, rng, nf, p, s, "float32")
-          for nf, p, s in ((8192, 48, 16), (4096, 80, 16), (1024, 216, 24))]
-    k3.append(check_k3(torch, rng, 4096, 80, 16, "float64"))
+    # K3 at every shape a path launches and at every dense library shape
+    # of p > 64, s <= 128 it can hold (the routing table), f32 on the f32
+    # paths, f64 on f64_32's
+    k3, k3_refused = [], []
+    for dtype, plans in (("float32", dict(exact64=s64.pdev, exact32=s32.pdev,
+                                          blr50=s50.pdev)),
+                         ("float64", dict(f64_32=sd.pdev))):
+        shapes, refused = k3_shapes(plans, dtype)
+        k3 += [check_k3(torch, rng, nf, p, s, dtype, buckets=n)
+               for (nf, p, s), n in sorted(shapes.items())]
+        k3_refused += [dict(nf=nf, p=p, s=s, dtype=dtype, buckets=n)
+                       for (nf, p, s), n in sorted(refused.items())]
+        torch.cuda.empty_cache()
+    print("K3-refused", json.dumps(k3_refused), flush=True)
     # K2 and K4 at every shape one blr50 factorization launches, then the
     # shapes of the earlier checks and the other designs
-    A50, s50, t_reorder50 = make_solver(50, "float32", 1e-4, blr=True)
-    print(f"blr50 reorder {t_reorder50:.2f} s", flush=True)
-    k2_blr, k4_blr = blr_shapes(s50.pdev)
+    k2_blr, k4_blr = blr_shapes(s50.pdev, torch.float32)
     print(f"blr50 K2 shapes {sorted(k2_blr.items())}", flush=True)
     print(f"blr50 K4 shapes {sorted(k4_blr.items())}", flush=True)
     k2 = [check_k2(torch, rng, nf, p, s, "float32", launches=n)
@@ -799,7 +919,6 @@ def main():
     torch.cuda.empty_cache()
 
     phase("4 exact32")
-    A32, s32, t_reorder32 = make_solver(32, "float32", 1e-5)
     run_solver(torch, "exact32", A32, s32, t_reorder32, seed=32,
                res_tol=1e-4, profile=True)
     del A32, s32
@@ -812,7 +931,6 @@ def main():
     torch.cuda.empty_cache()
 
     phase("6 f64")
-    Ad, sd, t_reorderd = make_solver(32, "float64", None)
     run_solver(torch, "f64_32", Ad, sd, t_reorderd, seed=3,
                scaled_tol=1e-10)
     del Ad, sd
@@ -821,7 +939,7 @@ def main():
     phase("7 blr50")
     blr_run = run_solver(torch, "blr50", A50, s50, t_reorder50, seed=50,
                          res_tol=1e-3, memory=True, profile=True,
-                         launched=tuple(PLAN_LAUNCHES), peak_check=False,
+                         launched=tuple(_wrappers()), peak_check=False,
                          k4_design="cta")
     del A50, s50
     torch.cuda.empty_cache()
@@ -844,13 +962,21 @@ def main():
                         else sum(r["library_ms"] for r in recs)),
             shapes=recs)
 
+    def k3_entry(e):
+        # the kernel alone beside the wrapper + Schur GEMM of ``ms``
+        for key in ("kernel_ms", "schur_ms", "kernel_bound_ms"):
+            vals = [r[key] for r in e["shapes"]]
+            e[key] = None if None in vals else sum(vals)
+        return e
+
     kernels = [
         entry("extend_add", "strumpack_tpu_torch/csrc/extend_add.cu",
               "strumpack_tpu/ops/pallas_extadd.py:204", main_run,
               "extend_add", k1),
-        entry("front_lu_cross", "strumpack_tpu_torch/csrc/front_lu.cu",
-              "strumpack_tpu/ops/pallas_lu.py:286", main_run,
-              "front_lu_cross", k3),
+        k3_entry(entry("front_lu_cross", "strumpack_tpu_torch/csrc/front_lu.cu",
+                       "strumpack_tpu/ops/pallas_lu.py:286", main_run,
+                       "front_lu_cross",
+                       k3)),
         entry("small_lu", "strumpack_tpu_torch/csrc/small_lu.cu",
               "strumpack_tpu/ops/pallas_lu.py:102", blr_run, "small_lu", k2),
         entry("panel_lu", "strumpack_tpu_torch/csrc/panel_lu.cu",

@@ -134,15 +134,29 @@ class PlanDev:
     def _blr(self):
         return [bd.bp for lvl in self.levels for bd in lvl if bd.bp.blr]
 
-    def k3_buckets(self):
-        """Number of buckets routed to K3: its launches per factorization."""
-        return sum(FL.use_cross(bp.s_pad, bp.p, bp.nf) for bp in self._dense())
-
-    def k2_dense_shapes(self):
-        """(nf, p, s) of each dense bucket K2 factors: p <= 64 and not
-        taken by K3."""
+    def k3_shapes(self, dtype):
+        """(nf, p, s) of each dense bucket K3 factors in ``dtype``, one per
+        launch."""
         return [(bp.nf, bp.p, bp.s_pad) for bp in self._dense()
-                if not FL.use_cross(bp.s_pad, bp.p, bp.nf)
+                if FL.use_cross(bp.s_pad, bp.p, dtype)]
+
+    def k3_buckets(self, dtype):
+        """Number of buckets routed to K3 in ``dtype``: its launches per
+        factorization."""
+        return len(self.k3_shapes(dtype))
+
+    def library_shapes(self, dtype):
+        """(nf, p, s) of each dense bucket the library route factors in
+        ``dtype``."""
+        return [(bp.nf, bp.p, bp.s_pad) for bp in self._dense()
+                if not FL.use_cross(bp.s_pad, bp.p, dtype)
+                and bp.p > FL.MAX_PALLAS_P]
+
+    def k2_dense_shapes(self, dtype):
+        """(nf, p, s) of each dense bucket K2 factors in ``dtype``: p <= 64
+        and not taken by K3."""
+        return [(bp.nf, bp.p, bp.s_pad) for bp in self._dense()
+                if not FL.use_cross(bp.s_pad, bp.p, dtype)
                 and bp.p <= FL.MAX_PALLAS_P]
 
     def batched_lu_shapes(self):
@@ -151,11 +165,11 @@ class PlanDev:
         return [(bp.nf, bp.tile) for bp in self._blr()
                 for _ in range(bp.s_pad // bp.tile)]
 
-    def k2_launches(self):
-        """K2 launches per factorization: the dense buckets of
+    def k2_launches(self, dtype):
+        """K2 launches per factorization in ``dtype``: the dense buckets of
         ``k2_dense_shapes`` and the ``batched_lu`` calls of tiles up to
         64."""
-        return len(self.k2_dense_shapes()) + sum(
+        return len(self.k2_dense_shapes(dtype)) + sum(
             t <= FL.MAX_PALLAS_P for _, t in self.batched_lu_shapes())
 
     def k4_launches(self):
@@ -185,13 +199,13 @@ def _unpacked(packed, s):
 
 def _factor_bucket(F, thresh, s_pad, pivoting=True):
     """Batched partial factorization of identity-padded fronts, routed by
-    shape exactly like ``strumpack_tpu/frontal/numeric.py:449-496``: K3
-    when ``use_cross(s, p, nf)``, K2 when p <= 64, else the plain no-pivot
-    elimination without pivoting or the library route.  Returns (lu, perm,
-    L21, U12, CB)."""
+    shape in the order of ``strumpack_tpu/frontal/numeric.py:449-496``: K3
+    when ``use_cross(s, p, dtype)`` (the port's predicate, derived on the
+    H100), K2 when p <= 64, else the plain no-pivot elimination without
+    pivoting or the library route.  Returns (lu, perm, L21, U12, CB)."""
     nf, p, _ = F.shape
     s = s_pad
-    if FL.use_cross(s, p, nf):
+    if FL.use_cross(s, p, F.dtype):
         route_counts["k3"] += 1
         return FL.partial_factor(F, thresh, s, pivot=pivoting)
     if p <= FL.MAX_PALLAS_P:

@@ -10,8 +10,18 @@ Three routes, chosen by shape alone (``frontal/numeric.py::_factor_bucket``):
   ``batched_lu`` (``ops/panel_lu.py``) also sends BLR tiles up to 64 here.
 * **K3**, the cross-shape kernel (``partial_factor``), replacing
   ``strumpack_tpu/ops/pallas_lu.py`` (``pallas_partial_factor`` ->
-  ``_lu_cross_kernel``).  The CUDA kernel is ``csrc/front_lu.cu``; its note
-  says what bounds it on an H100 and how its design answers that.
+  ``_lu_cross_kernel``) for the fronts ``use_cross`` names.  The CUDA
+  kernel is ``csrc/front_lu.cu``.  It is bound by bytes (A = [F11; F21]
+  and B = F12 in, lu, L21, U12 out, about s / 8 flops a byte) but a front
+  waits on s dependent steps and the SM on their instructions, so the
+  kernel holds one row of A a thread in registers with the step index a
+  compile-time constant (one barrier a step, no per-element column
+  test), moves B after the elimination as one forward substitution a
+  column, and packs small fronts several to a CTA (``k3_layout``).  The
+  Schur GEMM CB = F22 - L21 U12 stays one batched GEMM outside.  What it
+  holds routes the fronts (``use_cross``) without a GPU, so this module
+  keeps a copy of the kernel's capacity, which ``k3_capacity_drift``
+  holds against the kernel's own.
   ``partial_factor_plain`` is its plain version: the CPU path and the
   kernel's reference in the tests and in ``chip_smoke.py``.
 * the **library** route (``library_factor``): ``torch.linalg.lu_factor``,
@@ -35,27 +45,20 @@ import torch
 
 from . import _build
 
-# Routing thresholds, kept identical to strumpack_tpu/ops/pallas_lu.py so
-# that the same buckets take the same route in both packages.  They were
-# derived for the TPU's VMEM and lanes; re-deriving them for Hopper's
-# 227 KB of shared memory is queued.
-_LANES = 128
 MAX_PALLAS_P = 64           # K2's limit
-MAX_CROSS_P = 128
-MAX_CROSS_WIDE_P = 640
-MIN_CROSS_WIDE_NF = 32
-_CROSS_VMEM_BUDGET = 80 * 1024 * 1024
 SMEM_LIMIT = 232448         # H100 dynamic shared memory per block (227 KB)
 
 _FN = {torch.float32: "lu_cross_f32", torch.float64: "lu_cross_f64"}
 _SIG = (ctypes.c_int, [ctypes.c_void_p] * 5 + [
     ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_double,
-    ctypes.c_int, ctypes.c_void_p])
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 _FN2 = {torch.float32: "small_lu_f32", torch.float64: "small_lu_f64"}
 _SIG2 = (ctypes.c_int, [ctypes.c_void_p] * 3 + [
     ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_double,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 _SIGS = {fn: _SIG for fn in _FN.values()}
+_SIGS["lu_cross_capacity"] = (ctypes.c_int, [ctypes.c_int] * 4
+                              + [ctypes.c_void_p])
 _SIGS2 = {fn: _SIG2 for fn in _FN2.values()}
 K2_THREADS = 256            # threads of one K2 CTA, at most
 H100_SMS = 132
@@ -198,36 +201,119 @@ def nopivot_factor_bucket(F, thresh, s_pad):
 # ---------------------------------------------------------------------------
 
 
-def _cross_bb(p, s, u, nf):
-    """The TPU kernel's fronts-per-block choice; here it only decides the
-    route (``use_cross``), exactly as in the JAX package."""
-    bb = _LANES if p * s > 2048 else 4 * _LANES
-    nfp2 = 32
-    while nfp2 < nf:
-        nfp2 *= 2
-    bb = min(bb, nfp2)
-    while bb > 32 and (p * s + s * u) * bb * 64 > _CROSS_VMEM_BUDGET:
-        bb //= 2
-    if (p * s + s * u) * bb * 64 > _CROSS_VMEM_BUDGET:
-        return None
-    return bb
+K3_WIDTHS = (8, 16, 24, 32, 48, 64)  # K3's width buckets: the s a row holds
+K3_CTA_THREADS = 256            # threads of a CTA that packs several fronts
+K3_MAX_FPC = 8                  # fronts per CTA, at most (barrier ids)
 
 
-def use_cross(s, p, nf):
-    """Routing predicate for K3 (``pallas_lu.py:268``): fronts with
-    p <= 128, or p <= 640 with nf >= 32 when a full-lane TPU block fits."""
-    if not (0 < s < p and s >= 8):
+def _align16(x):
+    return (x + 15) // 16 * 16
+
+
+# Threads of one K3 CTA, at most, by value size and width bucket: its
+# __launch_bounds__ (csrc/front_lu.cu Cfg::MAXT, k3_capacity_drift holds
+# the two equal), which leave each thread the registers its row needs
+# without spilling
+K3_MAX_THREADS = {4: {8: 1024, 16: 1024, 24: 512, 32: 512, 48: 512, 64: 384},
+                  8: {8: 768, 16: 512, 24: 512, 32: 384, 48: 256, 64: 256}}
+
+
+def k3_smem(nw, s, wb, itemsize):
+    """Dynamic shared memory of one K3 front (``csrc/front_lu.cu``
+    ``layout``): each warp's staging tile, the L11 tile, the pivot row by
+    step parity, the per-warp pivot candidates and the permutation."""
+    ch = wb
+    while ch * itemsize > 128:
+        ch //= 2
+    nwt = (wb + 31) // 32
+    return (_align16(nw * 32 * (ch + 1) * itemsize)
+            + _align16(s * (wb + 16 // itemsize) * itemsize)
+            + _align16(2 * wb * itemsize)
+            + _align16(2 * nwt * (4 if itemsize == 4 else 8))
+            + _align16(2 * nwt * 4) + _align16(wb * 4))
+
+
+def _k3_refusal(p, s, itemsize):
+    """Why K3 cannot hold a front [p, p] eliminating s columns of
+    ``itemsize``-byte values, or None when it can."""
+    if not 0 < s < p:
+        return f"K3 takes 0 < s < p, not s={s}, p={p}"
+    wb = next((w for w in K3_WIDTHS if w >= s), None)
+    if wb is None:
+        return f"K3 takes s <= {K3_WIDTHS[-1]}, not {s}"
+    nw = -(-p // 32)
+    maxt = K3_MAX_THREADS[itemsize][wb]
+    if 32 * nw > maxt:
+        return (f"K3: a front of p={p} rows needs {32 * nw} threads "
+                f"(> {maxt} at s={s}, {itemsize}-byte values)")
+    smem = k3_smem(nw, s, wb, itemsize)
+    if smem > SMEM_LIMIT:
+        return (f"K3: a front p={p}, s={s} needs {smem} bytes of shared "
+                f"memory (> {SMEM_LIMIT})")
+    return None
+
+
+def k3_layout(p, s, nf, itemsize, sms=H100_SMS):
+    """K3's launch choice for nf fronts [p, p] eliminating s columns:
+    (width bucket, warps per front, fronts per CTA).  One thread per row
+    of [F11; F21] holds its s values in registers (a width bucket >= s);
+    a front is ceil(p / 32) warps.  A CTA packs up to 256 threads of
+    fronts, but only as many as it takes to give each of the card's
+    ``sms`` SMs a CTA.  Raises ValueError on a front the kernel cannot
+    hold (s > 64, more rows than a CTA's registers hold at that width,
+    or shared memory)."""
+    why = _k3_refusal(p, s, itemsize)
+    if why:
+        raise ValueError(why)
+    wb = next(w for w in K3_WIDTHS if w >= s)
+    nw = -(-p // 32)
+    fpc = min(K3_CTA_THREADS // (32 * nw), K3_MAX_FPC, -(-nf // sms),
+              SMEM_LIMIT // k3_smem(nw, s, wb, itemsize))
+    return wb, nw, max(1, fpc)
+
+
+def k3_capacity_drift():
+    """Where this module's copy of K3's capacity (``K3_MAX_THREADS``,
+    ``k3_smem``, ``SMEM_LIMIT``, ``K3_MAX_FPC``, which route fronts without
+    a GPU) differs from the kernel's own (``csrc/front_lu.cu``
+    ``lu_cross_capacity``), at every width bucket, value size, front
+    height and s: a list of the differences, empty when the two agree.
+    Builds the kernel library."""
+    lib = _build.load("front_lu", _SIGS)
+    out = (ctypes.c_int64 * 4)()
+    drift = []
+    for itemsize, caps in K3_MAX_THREADS.items():
+        lo = 0
+        for wb in K3_WIDTHS:
+            for nw in range(1, caps[wb] // 32 + 1):
+                for s in range(lo + 1, wb + 1):
+                    _build.check(lib, "front_lu", lib.lu_cross_capacity(
+                        itemsize, wb, nw, s, out))
+                    want = (caps[wb], k3_smem(nw, s, wb, itemsize),
+                            SMEM_LIMIT, K3_MAX_FPC)
+                    if tuple(out) != want:
+                        drift.append(f"{itemsize}-byte values, wb={wb}, "
+                                     f"nw={nw}, s={s}: kernel {tuple(out)},"
+                                     f" wrapper {want}")
+            lo = wb
+    return drift
+
+
+def use_cross(s, p, dtype):
+    """Routing predicate for K3, derived on the H100 (PERF.md, the routing
+    table): K3 takes every front [p, p] with s eliminated columns that it
+    can hold (``k3_layout``: s <= 64, and no more rows than
+    ``K3_MAX_THREADS`` gives its width and dtype), except the fronts of
+    p <= 64 with s < 8, which stay with K2 as in the JAX package.  On the
+    card K3 beat the library route at every such shape of exact32,
+    exact64, f64_32 and blr50, at every batch size from 1 to 8192, so the
+    batch size does not enter.  Beyond the JAX package's cross fronts (p <= 128, or p <= 640
+    with 32 fronts or more and a TPU block in VMEM) it takes the fronts
+    of p > 128 that K3 holds at any batch size, and s < 8 at p > 64; of
+    the JAX package's it leaves out s > 64, which K3 does not hold."""
+    if p <= MAX_PALLAS_P and s < 8:
         return False
-    if p <= MAX_CROSS_P:
-        return True
-    bb = _cross_bb(p, s, p - s, nf)
-    return (p <= MAX_CROSS_WIDE_P and nf >= MIN_CROSS_WIDE_NF
-            and bb is not None and bb >= _LANES)
-
-
-def smem_bytes(p, s, itemsize):
-    """Dynamic shared memory of one K3 block: A [p,s], B [s,u], perm [s]."""
-    return itemsize * (p * s + s * (p - s)) + 4 * s
+    return _k3_refusal(p, s, torch.finfo(dtype).bits // 8) is None
 
 
 def _schur(F, L21, U12, s):
@@ -266,6 +352,24 @@ def partial_factor_plain(F, thresh, s, pivot=True):
     return A[:, :s, :].contiguous(), P, L21, B, _schur(F, L21, B, s)
 
 
+@functools.lru_cache(maxsize=None)
+def _k3_launch(nf, p, s, dtype, index):
+    """What a K3 launch on nf fronts [p, p] of ``dtype`` on CUDA device
+    ``index`` needs of its shape, worked out once per bucket shape (the
+    wrapper's host time is the launch's cost at small nf): the library,
+    its launcher, ``k3_layout``'s choice, and the size of the one
+    allocation and the (size, stride, offset) of lu, L21 and U12 in it."""
+    layout = k3_layout(p, s, nf, torch.finfo(dtype).bits // 8,
+                       _sm_count(index))
+    lib = _build.load("front_lu", _SIGS)
+    u = p - s
+    views = (((nf, s, s), (s * s, s, 1), 0),
+             ((nf, u, s), (u * s, s, 1), nf * s * s),
+             ((nf, s, u), (s * u, u, 1), nf * (s * s + u * s)))
+    return lib, getattr(lib, _FN[dtype]), layout, nf * (s * s + 2 * u * s), \
+        views
+
+
 def partial_factor(F, thresh, s, pivot=True):
     """K3: partial LU of the fronts F [nf, p, p] over their s leading
     columns.  CPU tensors take the plain version; CUDA tensors launch the
@@ -276,20 +380,15 @@ def partial_factor(F, thresh, s, pivot=True):
     nf, p, p2 = F.shape
     if p != p2 or not 0 < s < p:
         raise ValueError(f"partial_factor: F{tuple(F.shape)}, s={s}")
-    smem = smem_bytes(p, s, F.element_size())
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"partial_factor: front p={p}, s={s} needs {smem} "
-                         f"bytes of shared memory (> {SMEM_LIMIT})")
-    u = p - s
-    lu = torch.empty((nf, s, s), dtype=F.dtype, device=F.device)
-    L21 = torch.empty((nf, u, s), dtype=F.dtype, device=F.device)
-    U12 = torch.empty((nf, s, u), dtype=F.dtype, device=F.device)
+    lib, fn, (wb, nw, fpc), n, views = _k3_launch(nf, p, s, F.dtype,
+                                                  F.device.index)
+    # lu, L21 and U12 are views of one allocation (fewer calls a launch)
+    out = torch.empty(n, dtype=F.dtype, device=F.device)
+    lu, L21, U12 = (out.as_strided(*v) for v in views)
     perm = torch.empty((nf, s), dtype=torch.int64, device=F.device)
-    lib = _build.load("front_lu", _SIGS)
-    stream = _build.stream(F.device)
-    err = getattr(lib, _FN[F.dtype])(
-        F.data_ptr(), lu.data_ptr(), L21.data_ptr(), U12.data_ptr(),
-        perm.data_ptr(), nf, p, s, float(thresh), int(bool(pivot)), stream)
+    err = fn(F.data_ptr(), lu.data_ptr(), L21.data_ptr(), U12.data_ptr(),
+             perm.data_ptr(), nf, p, s, float(thresh), int(bool(pivot)), wb,
+             nw, fpc, _build.stream(F.device))
     _build.check(lib, "front_lu", err)
     partial_factor.launches += 1
     return lu, perm, L21, U12, _schur(F, L21, U12, s)

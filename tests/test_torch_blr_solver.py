@@ -4,6 +4,7 @@ separators >= 128, tiles at rel_tol 1e-5, preconditioned GMRES to 1e-6,
 f64 on the CPU)."""
 import numpy as np
 import pytest
+import torch
 
 import strumpack_tpu as sj
 from strumpack_tpu.frontal import numeric as sj_numeric
@@ -151,8 +152,9 @@ def test_batched_lu_shapes_are_the_calls(pair, monkeypatch):
     port.factor()
     shapes = port.pdev.batched_lu_shapes()
     assert calls == shapes * port.factor_passes and shapes
-    dense = port.pdev.k2_dense_shapes()
-    assert port.pdev.k2_launches() == len(dense) + sum(
+    dtype = getattr(torch, port.opts.factor_dtype)
+    dense = port.pdev.k2_dense_shapes(dtype)
+    assert port.pdev.k2_launches(dtype) == len(dense) + sum(
         t <= FL.MAX_PALLAS_P for _, t in shapes)
-    assert all(p <= FL.MAX_PALLAS_P and not FL.use_cross(s, p, nf)
+    assert all(p <= FL.MAX_PALLAS_P and not FL.use_cross(s, p, dtype)
                for nf, p, s in dense)

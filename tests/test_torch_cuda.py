@@ -77,6 +77,93 @@ def test_front_lu_kernel_without_pivoting(cuda_device, dtype):
     assert torch.equal(got[1].cpu(), torch.arange(16).expand(50, 16))
 
 
+# (nf, p, s, (width bucket, warps per front, fronts per CTA) on 132 SMs):
+# every width bucket, one to twenty warps a front, one to eight fronts a
+# CTA with nf not a multiple of it, the rows < s in one warp or two
+K3_CASES = [
+    (2048, 32, 8, (8, 1, 8)),
+    (1001, 24, 8, (8, 1, 8)),
+    (130, 56, 8, (8, 2, 1)),
+    (4, 640, 8, (8, 20, 1)),
+    (501, 40, 16, (16, 2, 4)),
+    (300, 48, 16, (16, 2, 3)),
+    (300, 96, 32, (32, 3, 2)),
+    (40, 216, 24, (24, 7, 1)),
+    (2, 384, 32, (32, 12, 1)),
+    (10, 100, 48, (48, 4, 1)),
+    (20, 128, 64, (64, 4, 1)),
+    (3, 256, 64, (64, 8, 1)),
+]
+
+
+def _k3_fronts(nf, p, dtype, pivot, seed):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    F = torch.randn(nf, p, p, dtype=dtype, generator=gen)
+    if not pivot:       # diagonally dominant: stable without pivoting
+        F += 2 * p * torch.eye(p, dtype=dtype)
+    F[0, :, 0] = 0.0    # front 0: a zero pivot, replaced by thresh
+    return F
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pivot", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nf,p,s,layout", K3_CASES)
+def test_front_lu_kernel_layouts(cuda_device, dtype, nf, p, s, layout,
+                                 pivot):
+    """Every width bucket and fronts-per-CTA layout: perm and the factors
+    bit for bit against the plain version, the zero pivot of front 0
+    replaced."""
+    assert FL.k3_layout(p, s, nf, dtype.itemsize, 132) == layout
+    F = _k3_fronts(nf, p, dtype, pivot, nf + p + s).to(cuda_device)
+    before = FL.partial_factor.launches
+    got = FL.partial_factor(F, 1e-4, s, pivot)
+    assert FL.partial_factor.launches == before + 1
+    want = FL.partial_factor_plain(F, 1e-4, s, pivot)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert float(got[0][0, 0, 0]) == float(torch.tensor(1e-4, dtype=dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nf,p,s,layout", K3_CASES)
+def test_front_lu_kernel_ties_and_nan(cuda_device, dtype, nf, p, s, layout):
+    """Integer-valued fronts (many equal magnitudes: the lowest current
+    position must win every tie, after the earlier swaps) and a NaN in
+    front 3's column 2 (NaN beats every number): perm identical to the
+    plain version's, every output bit for bit, NaNs where the plain
+    version has them (neither updates a row that is already pivoted)."""
+    rng = np.random.default_rng(p + s)
+    F = torch.from_numpy(rng.integers(-2, 3, size=(nf, p, p))).to(dtype)
+    F[min(3, nf - 1), 5, 2] = float("nan")
+    F = F.to(cuda_device)
+    got = FL.partial_factor(F, 1e-4, s)
+    want = FL.partial_factor_plain(F, 1e-4, s)
+    assert torch.equal(got[1], want[1])
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_front_lu_takes_the_fronts_it_now_routes(cuda_device, dtype):
+    """A bucket past the JAX package's cross thresholds (p = 256 > 128 with
+    8 fronts < 32) that the port's predicate sends to K3: the solver's
+    bucket step launches K3, bit for bit against the plain version."""
+    from strumpack_tpu_torch.frontal import numeric
+    nf, p, s = 8, 256, 64
+    assert FL.use_cross(s, p, dtype)
+    F = _k3_fronts(nf, p, dtype, True, 7).to(cuda_device)
+    before = FL.partial_factor.launches, numeric.route_counts["k3"]
+    got = numeric._factor_bucket(F, 1e-4, s)
+    assert (FL.partial_factor.launches, numeric.route_counts["k3"]) == (
+        before[0] + 1, before[1] + 1)
+    want = FL.partial_factor_plain(F, 1e-4, s)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def _assert_same_with_nan(got, want, nan_front):
     """Every front but ``nan_front`` bit for bit.  On ``nan_front`` the
     values equal wherever the plain version's are finite, and the kernel
@@ -229,7 +316,7 @@ def test_blr_launches_match_the_plan(cuda_device):
     k2, k4 = FL.factor_bucket.launches, PP.panel_lu.launches
     s.factor()
     assert s.factor_passes == 1
-    assert FL.factor_bucket.launches - k2 == s.pdev.k2_launches() > 0
+    assert FL.factor_bucket.launches - k2 == s.pdev.k2_launches(torch.float32) > 0
     assert PP.panel_lu.launches - k4 == s.pdev.k4_launches() > 0
     b = A.spmv(np.random.default_rng(0).standard_normal(A.n))
     x, rc = s.solve(b)
@@ -239,10 +326,20 @@ def test_blr_launches_match_the_plan(cuda_device):
 
 
 @pytest.mark.cuda
+def test_front_lu_capacity_matches_the_kernel(cuda_device):
+    """The routing's copy of what K3 holds (threads a CTA by width bucket,
+    shared memory of a front, the limits) equals the kernel's own at
+    every width bucket, value size, front height and s."""
+    assert FL.k3_capacity_drift() == []
+
+
+@pytest.mark.cuda
 def test_front_lu_rejects_what_it_cannot_launch(cuda_device):
     F = torch.zeros(1, 1024, 1024, device=cuda_device)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="s <= 64"):
         FL.partial_factor(F, 0.0, 512)
+    with pytest.raises(ValueError, match="threads"):
+        FL.partial_factor(F, 0.0, 32)
     with pytest.raises(NotImplementedError):
         FL.partial_factor(F.to(torch.complex64), 0.0, 8)
     with pytest.raises(ValueError, match="p <= 64"):

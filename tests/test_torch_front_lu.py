@@ -27,7 +27,7 @@ def _fronts(rng, nf, p, s, dtype):
     return F
 
 
-@pytest.mark.parametrize("nf,p,s", [(5, 24, 8), (3, 48, 16)])
+@pytest.mark.parametrize("nf,p,s", [(5, 24, 8), (3, 48, 16), (2, 160, 32)])
 def test_plain_matches_pallas_interpret(nf, p, s):
     rng = np.random.default_rng(nf * 100 + p)
     F = _fronts(rng, nf, p, s, np.float32)
@@ -50,6 +50,38 @@ def test_plain_matches_pallas_interpret(nf, p, s):
                                    err_msg=name)
     d = np.abs(np.diagonal(got[0].numpy(), axis1=1, axis2=2))
     assert d[0, 0] == np.float32(thresh) and d[1, 1] == np.float32(thresh)
+
+
+def test_cross_ties_take_the_lowest_position():
+    """Integer-valued fronts (equal magnitudes everywhere): among equal
+    |.| candidates the row at the lowest current position wins, positions
+    counted after the earlier swaps (the masked min over row indices of
+    pallas_lu.py:190 after its arithmetic swaps).  f64; perm identical,
+    values to 1e-12 of each output's largest entry."""
+    rng = np.random.default_rng(17)
+    nf, p, s = 4, 40, 16
+    F = rng.integers(-2, 3, size=(nf, p, p)).astype(np.float64)
+    want = pallas_partial_factor(jnp.asarray(F), thresh=1e-3, s_pad=s,
+                                 pivot=True, interpret=True)
+    got = FL.partial_factor(torch.from_numpy(F), 1e-3, s)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    for name, a, b in zip(NAMES, got, want):
+        if name != "perm":
+            b = np.asarray(b)
+            np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                       atol=1e-12 * np.abs(b).max(),
+                                       err_msg=name)
+    # a tie the lowest position decides: column 0 holds +-2 in rows 1 and
+    # 3 of front 0 below a 1 in row 0; row 1 wins, then the displaced row 0
+    # sits at position 1 and competes from there
+    G = np.eye(6)
+    G[:4, 0] = [1.0, 2.0, 1.0, -2.0]
+    G[:4, 1] = [3.0, 0.0, 0.0, 1.5]
+    got = FL.partial_factor(torch.from_numpy(G[None]), 0.0, 4)
+    want = pallas_partial_factor(jnp.asarray(G[None]), s_pad=4, pivot=True,
+                                 interpret=True)
+    assert got[1][0].tolist() == np.asarray(want[1])[0].tolist()
+    assert got[1][0, :2].tolist() == [1, 0]
 
 
 def test_library_route_matches_xla_path():
@@ -196,6 +228,31 @@ def test_k2_layout_by_p_and_nf(p, nf, want):
     to 64; a CTA packs up to 8 or 4 fronts, as many as it takes to give
     each of the H100's 132 SMs a CTA."""
     assert FL.k2_layout(p, nf) == want
+
+
+@pytest.mark.parametrize("p,s,nf,itemsize,want", [
+    (48, 16, 8192, 4, (16, 2, 4)), (80, 16, 4096, 4, (16, 3, 2)),
+    (216, 24, 1024, 4, (24, 7, 1)), (32, 8, 2048, 4, (8, 1, 8)),
+    (32, 8, 4, 4, (8, 1, 1)), (24, 8, 300, 8, (8, 1, 3)),
+    (68, 4, 32, 4, (8, 3, 1)), (160, 32, 8, 8, (32, 5, 1)),
+    (384, 64, 512, 4, (64, 12, 1)), (256, 64, 64, 8, (64, 8, 1)),
+    (432, 48, 32, 4, (48, 14, 1)), (640, 8, 32, 8, (8, 20, 1))])
+def test_k3_layout_by_shape(p, s, nf, itemsize, want):
+    """K3 holds one row of [F11; F21] a thread: the width bucket (the pad
+    sizes 8, 16, 24, 32, 48, 64) >= s, a
+    front of ceil(p / 32) warps, up to 256 threads of fronts a CTA but only
+    as many as it takes to give each of the H100's 132 SMs a CTA."""
+    assert FL.k3_layout(p, s, nf, itemsize) == want
+
+
+@pytest.mark.parametrize("p,s,itemsize", [
+    (128, 96, 4), (448, 64, 4), (320, 64, 8), (1024, 32, 4), (16, 16, 4),
+    (416, 48, 8)])
+def test_k3_layout_rejects_what_it_cannot_hold(p, s, itemsize):
+    """s > 64, more rows than the registers of a CTA hold at that width
+    (``K3_MAX_THREADS``: 384 f32 or 256 f64 rows at s = 64), or s = p."""
+    with pytest.raises(ValueError):
+        FL.k3_layout(p, s, 8, itemsize)
 
 
 def test_k2_layout_rejects_wide_fronts():

@@ -80,9 +80,43 @@ def test_assembly_indices_unique(solvers):
 
 
 def test_use_cross_routes_alike():
+    """Every bucket the JAX package sends to its cross kernel goes to K3 in
+    the port too, in f32 and f64, but for s > 64, which K3 does not hold
+    (no path of the port has such a bucket: PERF.md).  The port adds
+    exactly the fronts its predicate's docstring names: those K3 holds
+    (``k3_layout``) beyond the JAX package's, at any batch size, except
+    p <= 64 with s < 8, which stay with K2."""
+    import torch
     for s in (0, 4, 7, 8, 16, 24, 48, 64, 96, 128, 256, 512):
         for u in (0, 8, 16, 64, 96, 128, 192, 384, 512, 1024):
             for nf in (1, 16, 31, 32, 64, 128, 1024):
                 p = s + u
-                assert FL.use_cross(s, p, nf) == PL.use_cross(s, p, nf), \
-                    (s, p, nf)
+                for dtype in (torch.float32, torch.float64):
+                    port = FL.use_cross(s, p, dtype)
+                    try:
+                        FL.k3_layout(p, s, nf, dtype.itemsize)
+                        holds = True
+                    except ValueError:
+                        holds = False
+                    if PL.use_cross(s, p, nf) and s <= 64:
+                        assert port, (s, p, nf, dtype)
+                    assert port == (holds and not (p <= 64 and s < 8)), \
+                        (s, p, nf, dtype)
+
+
+def test_k3_and_library_shapes(solvers):
+    """PlanDev lists the dense buckets by route: K3's shapes (its
+    launches) and the library route's, which with K2's cover every dense
+    bucket once."""
+    import torch
+    _, port = solvers
+    for dtype in (torch.float32, torch.float64):
+        k3 = port.pdev.k3_shapes(dtype)
+        lib = port.pdev.library_shapes(dtype)
+        assert port.pdev.k3_buckets(dtype) == len(k3) > 0
+        assert all(FL.use_cross(s, p, dtype) for _, p, s in k3)
+        assert not any(FL.use_cross(s, p, dtype) or p <= FL.MAX_PALLAS_P
+                       for _, p, s in lib)
+        dense = sorted((bp.nf, bp.p, bp.s_pad) for lvl in port.plan.levels
+                       for bp in lvl)
+        assert sorted(k3 + lib + port.pdev.k2_dense_shapes(dtype)) == dense
