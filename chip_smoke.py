@@ -21,13 +21,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    the other designs (K4 on one CTA, on clusters of 2, 8 and 16 CTAs, in
    global memory), and the blocked LU over K4; kernel, plain and library
    times by CUDA events (median of 15 after 3 warm-ups);
+   then K3 and K2 at every shape of the general-input phases (8-12) not
+   checked before, bit-exact: without pivoting at spd64's and
+   aniso24_nopivot's, with pivoting at nd64's, metis64's, mc64's and the
+   orderings' (events only, fewer repetitions);
 4. exact32: Poisson 32^3, f32 factor + f32 iterative refinement to 1e-5;
 5. exact64: Poisson 64^3, the same, plus peak device memory;
 6. f64: Poisson 32^3 in float64 (the kernels' double instantiation);
 7. blr50: Poisson 50^3 with BLR fronts, f32, preconditioned GMRES to 1e-4
    (bench.py's blr50 configuration), plus peak device memory;
-8. one JSON line {"kernels": [...]}, then the last line
-   {"ok": true, "device": {...}}.
+8. nd64, metis64: Poisson 64^3 given without its grid, ordered by the
+   defaults (native BFS nested dissection) and by METIS (native multilevel
+   ND), exact64's numerics; a second solve from the first solution;
+9. spd64: Poisson 64^3, the SPD path (Cholesky from the no-pivot K3),
+   f32 factor + f64 refinement to 1e-10, inertia, peak device memory;
+10. mc64: a high-contrast jump3d with scaled rows and permuted columns,
+    MC64 matching + scaling, METIS, f64; again after new values;
+11. orderings: Poisson 20^3 by NATURAL, RCM, AMD, MMD, MLF (12^3),
+    SPECTRAL, AND and SCOTCH, and an anisotropic 24^3 without pivoting,
+    f64;
+12. df32: Poisson 32^3, f32 factor + double-float refinement (bench.py's
+    df32 configuration);
+13. one JSON line {"kernels": [...]}, then the last line
+    {"ok": true, "device": {...}}.
 
 The launch counters are set to 0 just before each solver phase factors
 and read just after it solves; the launches the comparisons of phase 3 make
@@ -204,10 +220,13 @@ def k2_flops(nf, p, s):
     return nf * int(((p - k - 1) + 2 * (p - k - 1) ** 2).sum())
 
 
-def check_k2(torch, rng, nf, p, s, dtype, pivot=True, launches=0):
+def check_k2(torch, rng, nf, p, s, dtype, pivot=True, launches=0,
+             full=True):
     """K2 against its plain version: perm identical, the packed fronts bit
     for bit, the zero pivot of front 0 replaced, backward error.
-    ``launches``: how often one blr50 factorization launches this shape."""
+    ``launches``: how often one blr50 factorization launches this shape;
+    without ``full`` the times take fewer repetitions (the shapes of the
+    general-input phases)."""
     from strumpack_tpu_torch.ops import front_lu as FL
     eps = float(np.finfo(dtype).eps)
     thresh = float(np.sqrt(eps))
@@ -248,13 +267,15 @@ def check_k2(torch, rng, nf, p, s, dtype, pivot=True, launches=0):
         check(bool((rcb <= tol * scb).all()), "K2 Schur complement")
     del lu, L21, U12, CB, Fd, L11, U, P1, P2
 
-    ms = cuda_ms(lambda: FL.factor_bucket(F, thresh, s, pivot), torch)
+    reps = {} if full else dict(warmup=1, reps=5)
+    ms = cuda_ms(lambda: FL.factor_bucket(F, thresh, s, pivot), torch,
+                 **reps)
     plain = cuda_ms(lambda: FL.factor_bucket_plain(F, thresh, s, pivot),
-                    torch)
+                    torch, **({} if full else dict(warmup=0, reps=1)))
     # yardstick: the library route on the same batch (lu_factor_ex alone
     # for a full LU), timed only
     lib = cuda_ms((lambda: FL.library_factor(F, thresh, s)) if s < p else
-                  (lambda: torch.linalg.lu_factor_ex(F)), torch)
+                  (lambda: torch.linalg.lu_factor_ex(F)), torch, **reps)
     nbytes = nf * (np.dtype(dtype).itemsize * 2 * p * p + 8 * s)
     tb = nbytes / PEAK_BYTES * 1e3
     tf = k2_flops(nf, p, s) / PEAK_FLOPS[dtype] * 1e3
@@ -266,7 +287,7 @@ def check_k2(torch, rng, nf, p, s, dtype, pivot=True, launches=0):
                backward_error=float(be.max()), ms=ms, plain_ms=plain,
                library_ms=lib, bound_ms=max(tb, tf),
                bound_by="bytes" if tb >= tf else "operations")
-    print("K2", json.dumps(rec), flush=True)
+    print("K2" if full else "K2-general", json.dumps(rec), flush=True)
     return rec
 
 
@@ -446,32 +467,44 @@ def time_k3(torch, FL, F, thresh, s):
         library_ms=cuda_ms(lambda: FL.library_factor(F, thresh, s), torch))
 
 
-def k3_fronts(torch, rng, nf, p, dtype):
+def k3_fronts(torch, rng, nf, p, dtype, pivot=True):
+    """Random fronts, front 0 with a zero pivot (replaced by thresh); for
+    the no-pivot mode symmetric positive definite ones, as the Cholesky
+    path factors them."""
     Fn = rng.standard_normal((nf, p, p)).astype(dtype)
-    Fn[0, :, 0] = 0.0          # front 0: a zero pivot, replaced by thresh
+    if pivot:
+        Fn[0, :, 0] = 0.0
+    else:
+        Fn = Fn + Fn.transpose(0, 2, 1) + np.eye(p, dtype=dtype) * 2 * p
     return torch.from_numpy(Fn).cuda()
 
 
-def check_k3(torch, rng, nf, p, s, dtype, buckets=None):
+def check_k3(torch, rng, nf, p, s, dtype, buckets=None, pivot=True,
+             full=True):
     """K3 against its plain version: perm, lu, L21, U12 (and the CB, one
     GEMM on equal inputs) bit for bit, the zero pivot of front 0 replaced,
     backward error; then its times and the library route's.
     ``buckets``: {cell: buckets of this shape in one factorization}, each
-    a K3 launch."""
+    a K3 launch.  ``pivot=False``: the no-pivot mode on SPD fronts with
+    the Cholesky path's thresh 0, the SPD library route the yardstick.
+    Without ``full``, events only and fewer repetitions (the shapes of the
+    general-input phases)."""
+    from strumpack_tpu_torch.frontal import numeric
     from strumpack_tpu_torch.ops import front_lu as FL
     eps = float(np.finfo(dtype).eps)
-    thresh = float(np.sqrt(eps))
-    F = k3_fronts(torch, rng, nf, p, dtype)
-    k = FL.partial_factor(F, thresh, s)
-    q = FL.partial_factor_plain(F, thresh, s)
+    thresh = float(np.sqrt(eps)) if pivot else 0.0
+    F = k3_fronts(torch, rng, nf, p, dtype, pivot)
+    k = FL.partial_factor(F, thresh, s, pivot)
+    q = FL.partial_factor_plain(F, thresh, s, pivot)
     torch.cuda.synchronize()
     names = ("lu", "perm", "L21", "U12", "CB")
     same = (k[1] == q[1]).all(dim=1)
     flips = int((~same).sum())
     check(flips == 0, f"K3 perm identical ({flips} fronts differ) at "
-          f"{(nf, p, s, dtype)}")
+          f"{(nf, p, s, dtype, pivot)}")
     for n, a, b in zip(names, k, q):
-        check(torch.equal(a, b), f"K3 {n} bit-exact at {(nf, p, s, dtype)}")
+        check(torch.equal(a, b),
+              f"K3 {n} bit-exact at {(nf, p, s, dtype, pivot)}")
     err = max(float((a - b).abs().max()) for a, b in zip(k, q) if a.numel())
     tol = 1e-5 if dtype == "float32" else 1e-12
     # backward error, the replaced pivots' own entries left out
@@ -488,7 +521,8 @@ def check_k3(torch, rng, nf, p, s, dtype, buckets=None):
     rep = (torch.diagonal(U, dim1=1, dim2=2).abs()
            == float(np.asarray(thresh, dtype)))
     replaced = rep.any(dim=1)
-    check(bool(replaced[0]), "K3 front 0 has its zero pivot replaced")
+    check(bool(replaced[0]) or not pivot,
+          "K3 front 0 has its zero pivot replaced")
     be = backward_errors(torch, P1, P2, L11, L21, U, U12, skip=rep)
     check(bool((be <= tol).all()), f"K3 backward error {float(be.max()):.3g}")
     del k, q, lu, L21, U12, L11, U, Fd, P1, P2
@@ -496,20 +530,28 @@ def check_k3(torch, rng, nf, p, s, dtype, buckets=None):
     # ms: the wrapper with the Schur GEMM, as the solver calls it;
     # library: lu_factor + pivot conversion + 2 solve_triangular + GEMM,
     # the port's library route on the same fronts
-    rec = dict(nf=nf, p=p, s=s, dtype=dtype,
+    rec = dict(nf=nf, p=p, s=s, dtype=dtype, pivot=pivot,
                layout=FL.k3_layout(p, s, nf, F.element_size(),
                                    torch.cuda.get_device_properties(0)
                                    .multi_processor_count),
                buckets=buckets or {}, replaced_fronts=int(replaced.sum()),
                max_abs_err=err, backward_error=float(be.max()))
-    rec.update(time_k3(torch, FL, F, thresh, s))
+    if full:
+        rec.update(time_k3(torch, FL, F, thresh, s))
+    else:
+        rec["ms"] = cuda_ms(lambda: FL.partial_factor(F, thresh, s, pivot),
+                            torch, warmup=1, reps=5)
+        rec["library_ms"] = cuda_ms(
+            (lambda: FL.library_factor(F, thresh, s)) if pivot else
+            (lambda: numeric.cholesky_factor(F, s)), torch, warmup=1,
+            reps=5)
     rec["plain_ms"] = cuda_ms(
-        lambda: FL.partial_factor_plain(F, thresh, s), torch, warmup=1,
-        reps=3)
+        lambda: FL.partial_factor_plain(F, thresh, s, pivot), torch,
+        **(dict(warmup=1, reps=3) if full else dict(warmup=0, reps=1)))
     (rec["bound_ms"], rec["bound_by"]), (rec["kernel_bound_ms"],
                                          rec["kernel_bound_by"]) = \
         k3_bounds(nf, p, s, dtype)
-    print("K3", json.dumps(rec), flush=True)
+    print("K3" if full else "K3-general", json.dumps(rec), flush=True)
     return rec
 
 
@@ -590,23 +632,29 @@ def _wrappers():
                 small_lu=factor_bucket, panel_lu=panel_lu)
 
 
-def reset_counts():
+def _tallies():
+    """The per-kind launch tallies beside the counts: K4's by design, K3's
+    and K2's by pivot mode, and the buckets by route."""
     from strumpack_tpu_torch.frontal import numeric
+    from strumpack_tpu_torch.ops.front_lu import factor_bucket, partial_factor
     from strumpack_tpu_torch.ops.panel_lu import panel_lu
+    return dict(routes=numeric.route_counts,
+                panel_lu_designs=panel_lu.variants,
+                front_lu_cross_modes=partial_factor.modes,
+                small_lu_modes=factor_bucket.modes)
+
+
+def reset_counts():
     for fn in _wrappers().values():
         fn.launches = 0
-    for k in numeric.route_counts:
-        numeric.route_counts[k] = 0
-    for k in panel_lu.variants:
-        panel_lu.variants[k] = 0
+    for tally in _tallies().values():
+        for k in tally:
+            tally[k] = 0
 
 
 def read_counts():
-    from strumpack_tpu_torch.frontal import numeric
-    from strumpack_tpu_torch.ops.panel_lu import panel_lu
     out = {name: fn.launches for name, fn in _wrappers().items()}
-    out["routes"] = dict(numeric.route_counts)
-    out["panel_lu_designs"] = dict(panel_lu.variants)
+    out.update({name: dict(t) for name, t in _tallies().items()})
     return out
 
 
@@ -632,6 +680,101 @@ def make_solver(nx, dtype, rel_tol, blr=False):
     return A, s, time.perf_counter() - t0
 
 
+# the general-input phases, one cell each.  mc64 runs
+# jump3d at MC64_NX^3, not 48^3: the matching (scipy's LAPJVsp, as the JAX
+# package calls it) did not finish in 60 s on this matrix at 16^3 and
+# 24^3 (2 s at 20^3); MLF runs at MLF_NX^3, not 20^3: its exact greedy
+# minimum fill takes minutes at 20^3 (PERF.md, section 4)
+MC64_NX = 20
+MLF_NX = 12
+ORDERINGS = ("NATURAL", "RCM", "AMD", "MMD", "MLF", "SPECTRAL", "AND",
+             "SCOTCH")
+ORD_PHASES = tuple("ord_" + m for m in ORDERINGS) + ("aniso24_nopivot",)
+GENERAL_PHASES = ("nd64", "metis64", "spd64", "mc64", "df32") + ORD_PHASES
+
+
+def jump3d_scrambled(nx, seed):
+    """jump3d(nx) (coefficient contrast 1e6) with its rows scaled by
+    10^U(-4, 4) and its columns permuted, both from a numpy seed: the
+    large entries off the diagonal, on rows of very different scales."""
+    from scipy.sparse import diags
+    from strumpack_tpu_torch.sparse.csr import CSRMatrix
+    from strumpack_tpu_torch.sparse.gen import jump3d
+    A = jump3d(nx, contrast=1e6)
+    rng = np.random.default_rng(seed)
+    S = diags(10.0 ** rng.uniform(-4, 4, A.n)) @ A.to_scipy()
+    return CSRMatrix.from_scipy(S[:, rng.permutation(A.n)].tocsr())
+
+
+def make_general(name):
+    """(A, reordered solver, reorder seconds) of a general-input phase: a
+    matrix given without its grid unless the phase names one."""
+    import strumpack_tpu_torch as st
+    from strumpack_tpu_torch.sparse import gen
+    R = st.ReorderingStrategy
+    f32 = dict(factor_dtype="float32", refine_dtype="float32", rel_tol=1e-5)
+    f64 = dict(factor_dtype="float64", refine_dtype="float64")
+    dims = ()
+    if name == "nd64":
+        A, opts = gen.poisson3d(64), f32
+    elif name == "metis64":
+        A, opts = gen.poisson3d(64), dict(f32, reordering_method=R.METIS)
+    elif name == "spd64":
+        A, dims = gen.poisson3d(64), (64, 64, 64)
+        opts = dict(factor_dtype="float32", refine_dtype="float64",
+                    rel_tol=1e-10, symmetric=True, positive_definite=True)
+    elif name == "mc64":
+        A = jump3d_scrambled(MC64_NX, seed=0)
+        opts = dict(f64, rel_tol=1e-12, reordering_method=R.METIS,
+                    matching=st.MatchingJob.MAX_DIAGONAL_PRODUCT_SCALING)
+    elif name == "df32":
+        A, dims = gen.poisson3d(32), (32, 32, 32)
+        opts = dict(factor_dtype="float32", refine_dtype="float32x2",
+                    rel_tol=1e-12, abs_tol=1e-13)
+    elif name == "aniso24_nopivot":
+        A, opts = gen.anisotropic3d(24), dict(f64, pivoting=False)
+    else:
+        strategy = name[len("ord_"):]
+        A = gen.poisson3d(MLF_NX if strategy == "MLF" else 20)
+        opts = dict(f64, reordering_method=R[strategy])
+    s = st.SparseSolver(st.SPOptions(**opts))
+    s.set_csr_matrix(A)
+    t0 = time.perf_counter()
+    check(s.reorder(*dims) == st.ReturnCode.SUCCESS, f"{name} reorder")
+    return A, s, time.perf_counter() - t0
+
+
+def general_checks(torch, rng, gen, k3_done, k2_done):
+    """K3 and K2 at every shape of the general-input phases ({name:
+    PlanDev}) the checks before did not cover ((nf, p, s, dtype, pivot)
+    sets, updated): pivot mode at nd64's and metis64's f32 shapes and at
+    mc64's and the orderings' f64 shapes, no-pivot mode at spd64's f32
+    shapes and at aniso24_nopivot's f64 shapes."""
+    k3_new, k2_new = [], []
+    for dtype, pivot, names in (
+            ("float32", True, ("nd64", "metis64")),
+            ("float64", True, ("mc64",) + ORD_PHASES[:-1]),
+            ("float32", False, ("spd64",)),
+            ("float64", False, ("aniso24_nopivot",))):
+        plans = {n: gen[n] for n in names}
+        shapes, _ = k3_shapes(plans, dtype)
+        for (nf, p, s), n in sorted(shapes.items()):
+            if (nf, p, s, dtype, pivot) not in k3_done:
+                k3_done.add((nf, p, s, dtype, pivot))
+                k3_new.append(check_k3(torch, rng, nf, p, s, dtype,
+                                       buckets=n, pivot=pivot, full=False))
+        k2s = sorted({key for pdev in plans.values()
+                      for key in pdev.k2_dense_shapes(getattr(torch,
+                                                              dtype))})
+        for nf, p, s in k2s:
+            if (nf, p, s, dtype, pivot) not in k2_done:
+                k2_done.add((nf, p, s, dtype, pivot))
+                k2_new.append(check_k2(torch, rng, nf, p, s, dtype,
+                                       pivot=pivot, full=False))
+        torch.cuda.empty_cache()
+    return k3_new, k2_new
+
+
 def plan_launches(pdev, dtype):
     """Kernel wrapper -> the plan's launches of one factorization in
     ``dtype``."""
@@ -644,12 +787,15 @@ def plan_launches(pdev, dtype):
 def run_solver(torch, name, A, s, t_reorder, seed, res_tol=None,
                scaled_tol=None, memory=False, profile=False,
                launched=("extend_add", "front_lu_cross"), peak_check=True,
-               k4_design=None):
+               k4_design=None, steady=3, nopivot=False, x0_check=False,
+               spd=False):
     """Factor and solve once with the launch counters zeroed, check the
     counts against the plan and the result against the limits, then time
-    3 steady factor + solve pairs.  ``launched``: the kernels this path
+    ``steady`` factor + solve pairs.  ``launched``: the kernels this path
     must have launched at least once; ``k4_design``: the K4 design every
-    K4 launch must have taken."""
+    K4 launch must have taken; ``nopivot``: every K3 and K2 launch without
+    pivoting; ``x0_check``: a second solve from the first solution takes
+    no more iterations; ``spd``: the inertia is (n, 0, 0) and exact."""
     import strumpack_tpu_torch as st
     from strumpack_tpu_torch.frontal import numeric
     plan, pdev = s.plan, s.pdev
@@ -682,6 +828,12 @@ def run_solver(torch, name, A, s, t_reorder, seed, res_tol=None,
               f"{name}: every K4 launch on the {k4_design} design")
     check(sum(counts["routes"].values()) == nb * passes,
           f"{name}: every bucket routed")
+    check(counts["routes"]["empty"] == pdev.empty_buckets() * passes,
+          f"{name}: every empty-separator bucket passed on unfactored")
+    if nopivot:
+        for k in ("front_lu_cross", "small_lu"):
+            check(counts[k + "_modes"]["nopivot"] == counts[k],
+                  f"{name}: every {k} launch without pivoting")
     check(rc == st.ReturnCode.SUCCESS, f"{name}: solve returned {rc}")
     check(bool(np.isfinite(x).all()) and x.shape == (A.n,),
           f"{name}: finite solution of shape ({A.n},)")
@@ -693,28 +845,44 @@ def run_solver(torch, name, A, s, t_reorder, seed, res_tol=None,
     if scaled_tol is not None:
         check(scaled <= scaled_tol, f"{name}: max scaled residual {scaled:.3g}")
     its = s.Krylov_iterations()
-    # steady state: the same plan factored and solved again, 3 times
-    steady, steady_solve = [], []
-    for _ in range(3):
+    extra = {}
+    if x0_check:
+        _, rc0 = s.solve(b, x0=x)
+        extra["its_from_x0"] = s.Krylov_iterations()
+        check(rc0 == st.ReturnCode.SUCCESS and extra["its_from_x0"] <= its,
+              f"{name}: from x0 = x SUCCESS in {extra['its_from_x0']} <= "
+              f"{its} iterations")
+    if spd:
+        inertia = s.inertia()
+        extra["inertia"] = inertia[:3] + (inertia[3].name,)
+        check(inertia == (A.n, 0, 0, st.ReturnCode.SUCCESS),
+              f"{name}: inertia {inertia}")
+    # steady state: the same plan factored and solved again
+    steady_times, steady_solve = [], []
+    for _ in range(steady):
         s._factored = False
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         s.factor()
-        steady.append(time.perf_counter() - t0)
+        steady_times.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
         s.solve(b)
         steady_solve.append(time.perf_counter() - t0)
-    t_steady = float(np.median(steady))
-    rec = dict(phase=name, n=A.n, buckets=nb, plan_launches=want,
+    t_steady = float(np.median(steady_times))
+    rec = dict(phase=name, n=A.n, buckets=nb, levels=plan.n_levels,
+               empty_buckets=pdev.empty_buckets(),
+               ordering=s.opts.reordering_method.name, plan_launches=want,
                factor_passes=passes, launches=counts,
                factor_nnz=plan.factor_nnz, factor_flops=plan.factor_flops,
                reorder_s=t_reorder, factor_first_s=t_first,
-               factor_steady_s=t_steady, factor_steady_all_s=steady,
+               factor_steady_s=t_steady, factor_steady_all_s=steady_times,
                factor_gflops=plan.factor_flops / t_steady / 1e9,
                solve_first_s=t_solve,
                solve_steady_s=float(np.median(steady_solve)),
                its=its, achieved_rtol=s.achieved_rtol,
-               host_rel_residual=res, max_scaled_residual=scaled)
+               host_rel_residual=res, max_scaled_residual=scaled, **extra)
+    if "matching" in s.times:
+        rec["matching_s"] = s.times["matching"]
     if s.opts.compression != st.CompressionType.NONE:
         itemsize = np.dtype(s.opts.factor_dtype).itemsize
         rec.update(max_rank=s.fac.max_rank(),
@@ -871,6 +1039,17 @@ def main():
     A50, s50, t_reorder50 = make_solver(50, "float32", 1e-4, blr=True)
     print(f"reorder s: exact64 {t_reorder64:.2f}, exact32 {t_reorder32:.2f}, "
           f"f64_32 {t_reorderd:.2f}, blr50 {t_reorder50:.2f}", flush=True)
+    general = {}
+    for name in GENERAL_PHASES:
+        general[name] = make_general(name)
+        A_, s_, t_ = general[name]
+        print(f"reorder {name}: {t_:.2f} s, n {A_.n}, "
+              f"{s_.plan.n_levels} levels, "
+              f"{sum(len(lvl) for lvl in s_.pdev.levels)} buckets "
+              f"({s_.pdev.empty_buckets()} of empty separators), "
+              f"factor nnz {s_.plan.factor_nnz}"
+              + (f", matching {s_.times['matching']:.2f} s"
+                 if "matching" in s_.times else ""), flush=True)
     rng = np.random.default_rng(20261016)
     k1 = check_k1(torch, s64.pdev, rng)
     # K3 at every shape a path launches and at every dense library shape
@@ -917,10 +1096,18 @@ def main():
                ((1, 8192, 128, 0, "float32"), ("global", 0)))]
     blocked = check_blocked(torch, rng, 8, 256, "float32")
     torch.cuda.empty_cache()
+    # K3 and K2 at the general-input phases' shapes not checked above: K3
+    # and K2 without pivoting at every shape spd64 and aniso24_nopivot
+    # launch, with pivoting at nd64's, metis64's, mc64's and the
+    # orderings' new shapes
+    k3_gen, k2_gen = general_checks(
+        torch, rng, {n: g[1].pdev for n, g in general.items()},
+        {(r["nf"], r["p"], r["s"], r["dtype"], True) for r in k3},
+        {(r["nf"], r["p"], r["s"], r["dtype"], r["pivot"]) for r in k2})
 
     phase("4 exact32")
-    run_solver(torch, "exact32", A32, s32, t_reorder32, seed=32,
-               res_tol=1e-4, profile=True)
+    exact32_run = run_solver(torch, "exact32", A32, s32, t_reorder32,
+                             seed=32, res_tol=1e-4, profile=True)
     del A32, s32
 
     phase("5 exact64")
@@ -931,8 +1118,8 @@ def main():
     torch.cuda.empty_cache()
 
     phase("6 f64")
-    run_solver(torch, "f64_32", Ad, sd, t_reorderd, seed=3,
-               scaled_tol=1e-10)
+    f64_run = run_solver(torch, "f64_32", Ad, sd, t_reorderd, seed=3,
+                         scaled_tol=1e-10)
     del Ad, sd
     torch.cuda.empty_cache()
 
@@ -944,15 +1131,76 @@ def main():
     del A50, s50
     torch.cuda.empty_cache()
 
-    phase("8 summary")
+    runs = {r["phase"]: r for r in (exact32_run, main_run, f64_run,
+                                    blr_run)}
+
+    def general_run(name, **kw):
+        A, s, t = general.pop(name)
+        rec = run_solver(torch, name, A, s, t, seed=len(name), **kw)
+        runs[name] = rec
+        torch.cuda.empty_cache()
+        return A, s, rec
+
+    phase("8 nd64")
+    for name in ("nd64", "metis64"):
+        _, _, rec = general_run(name, res_tol=1e-4, x0_check=True,
+                                profile=name == "nd64")
+        print(f"{name}: factor nnz {rec['factor_nnz']} against exact64's "
+              f"geometric {main_run['factor_nnz']} "
+              f"({rec['factor_nnz'] / main_run['factor_nnz']:.3f}x)",
+              flush=True)
+
+    phase("9 spd64")
+    general_run("spd64", scaled_tol=1e-10, memory=True, nopivot=True,
+                spd=True)
+
+    phase("10 mc64")
+    A, s, rec = general_run("mc64", scaled_tol=1e-10)
+    A2 = A.copy()
+    A2.data = A2.data * (1.0 + 1e-3 * np.random.default_rng(7)
+                         .standard_normal(A2.nnz))
+    s.update_matrix_values(A2)
+    b2 = A2.spmv(np.random.default_rng(8).standard_normal(A2.n))
+    x2, rc2 = s.solve(b2)
+    upd = dict(rc=rc2.name, its=s.Krylov_iterations(),
+               max_scaled_residual=A2.max_scaled_residual(x2, b2),
+               pivot_growth=s.pivot_growth(), subnormals=s.subnormals())
+    print("mc64 after update_matrix_values", json.dumps(upd), flush=True)
+    check(rc2.name == "SUCCESS" and upd["max_scaled_residual"] <= 1e-10,
+          f"mc64 after update_matrix_values: {upd}")
+    rec["after_update"] = upd
+    del A, s, A2
+
+    phase("11 orderings")
+    for name in ORD_PHASES:
+        general_run(name, scaled_tol=1e-10, steady=1,
+                    nopivot=name == "aniso24_nopivot",
+                    profile=name == "ord_NATURAL")
+
+    phase("12 df32")
+    general_run("df32", scaled_tol=1e-10)
+
+    phase("13 summary")
     print("K4-blocked", json.dumps(blocked))
+    print("K3-general", json.dumps(k3_gen))
+    print("K2-general", json.dumps(k2_gen))
     print("ptxas", json.dumps(ptxas))
 
-    def entry(name, src, replaces, run, key, recs):
+    def entry(name, src, replaces, run, key, recs, general=()):
+        """One kernel's line: launches from ``run`` (and by phase), the
+        sums over its main checks ``recs``, and its checks at the
+        general-input phases' shapes summed apart."""
+        gen = dict(checks=len(general), nopivot_checks=sum(
+            not r["pivot"] for r in general))
+        if general:
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                gen[k] = sum(r[k] for r in general)
         return dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=run["launches"][key], launches_from=run["phase"],
-            max_abs_err=max(r["max_abs_err"] for r in recs),
+            launches_by_phase={n: r["launches"][key]
+                               for n, r in runs.items()},
+            max_abs_err=max(r["max_abs_err"] for r in (*recs, *general)),
             ms=sum(r["ms"] for r in recs),
             plain_ms=sum(r["plain_ms"] for r in recs),
             bound_ms=sum(r["bound_ms"] for r in recs),
@@ -960,7 +1208,7 @@ def main():
                       else "operations"),
             library_ms=(None if any(r["library_ms"] is None for r in recs)
                         else sum(r["library_ms"] for r in recs)),
-            shapes=recs)
+            general_shapes=gen, shapes=recs)
 
     def k3_entry(e):
         # the kernel alone beside the wrapper + Schur GEMM of ``ms``
@@ -975,10 +1223,10 @@ def main():
               "extend_add", k1),
         k3_entry(entry("front_lu_cross", "strumpack_tpu_torch/csrc/front_lu.cu",
                        "strumpack_tpu/ops/pallas_lu.py:286", main_run,
-                       "front_lu_cross",
-                       k3)),
+                       "front_lu_cross", k3, k3_gen)),
         entry("small_lu", "strumpack_tpu_torch/csrc/small_lu.cu",
-              "strumpack_tpu/ops/pallas_lu.py:102", blr_run, "small_lu", k2),
+              "strumpack_tpu/ops/pallas_lu.py:102", blr_run, "small_lu", k2,
+              k2_gen),
         entry("panel_lu", "strumpack_tpu_torch/csrc/panel_lu.cu",
               "strumpack_tpu/ops/pallas_panel_lu.py:110", blr_run,
               "panel_lu", k4),

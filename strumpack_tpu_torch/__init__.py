@@ -1,11 +1,17 @@
 """strumpack_tpu_torch — the PyTorch/CUDA port of strumpack_tpu.
 
-The exact multifrontal LU path (geometric nested dissection, level-batched
-numeric factorization, two-phase solve, iterative refinement) on an NVIDIA
-H100, with hand-written CUDA kernels for extend-add (``ops/extend_add.py``)
-and the cross-shape front LU (``ops/front_lu.py``).  The JAX package
-``strumpack_tpu`` is the reference this package is held against; nothing
-here imports it or JAX.
+The multifrontal solver on an NVIDIA H100 for real sparse matrices given
+with or without a grid: MC64-family matching and scaling, equilibration,
+a fill-reducing ordering (geometric, BFS or multilevel nested dissection,
+spectral, natural, RCM, AMD, MMD, MLF), the level-batched numeric
+factorization (LU with or without pivoting, Cholesky for SPD matrices,
+or BLR fronts), the two-phase solve, and iterative refinement (f32, f64
+or double float, from an initial guess), GMRES or BiCGStab; with the
+factor diagnostics (inertia, pivot growth, subnormals).  Hand-written CUDA
+kernels carry extend-add (``ops/extend_add.py``), the cross-shape and
+small-front LUs (``ops/front_lu.py``) and the panel LU
+(``ops/panel_lu.py``).  The JAX package ``strumpack_tpu`` is the reference
+this package is held against; nothing here imports it or JAX.
 """
 
 from .options import (CompressionType, EquilibrationType, KrylovSolver,

@@ -9,15 +9,19 @@ level-batched traversal (FrontGPU.cpp:470-640) and the two-phase solve
 * per bucket of identity-padded fronts: one scatter-add of A's values,
   extend-add of the children's contribution blocks (kernel K1,
   ``ops/extend_add.py``), and a batched partial LU routed by shape
-  (kernels K2 and K3 or the library route, ``ops/front_lu.py``), or for
-  BLR buckets the tiled BLR factorization (``frontal/blr.py``, whose tile
-  LUs launch kernels K2 and K4);
+  (kernels K2 and K3 or the library route, ``ops/front_lu.py``), with or
+  without pivoting; or the partial Cholesky of SPD fronts, derived from
+  the no-pivot K3/K2 outputs where they hold the front; or for BLR
+  buckets the tiled BLR factorization (``frontal/blr.py``, whose tile
+  LUs launch kernels K2 and K4).  Buckets of empty separators (the dummy
+  fronts that binarize an etree) eliminate nothing and launch no kernel;
 * a level's child CBs are dropped as soon as the level has consumed them,
   so the peak is factors + one level's working set (``factor_peak_bytes``)
   without the JAX package's split-program machinery.
 
-The other compressed fronts (HSS, HODLR, HODBF, lossy, BLR-compressed
-CBs), the SPD path, nf-chunked buckets and the distributed hooks are not
+The factor diagnostics (inertia, pivot growth, subnormal entries) read the
+factors.  The other compressed fronts (HSS, HODLR, HODBF, lossy,
+BLR-compressed CBs), nf-chunked buckets and the distributed hooks are not
 ported yet.
 """
 from __future__ import annotations
@@ -32,8 +36,9 @@ from ..ops.extend_add import extend_add
 
 # Buckets per route, counted at every factorization: "k3" and "k2" buckets
 # launch those kernels on CUDA, "library" buckets take torch.linalg (or the
-# plain no-pivot elimination), "blr" buckets the BLR factorization.
-route_counts = {"k3": 0, "k2": 0, "library": 0, "blr": 0}
+# plain no-pivot elimination), "blr" buckets the BLR factorization and
+# "empty" buckets (no separator columns) pass their fronts on as the CB.
+route_counts = {"k3": 0, "k2": 0, "library": 0, "blr": 0, "empty": 0}
 
 # Device memory the planner assumes where it has no CUDA device to ask:
 # the JAX package's fallback (strumpack_tpu/frontal/numeric.py:1835), so
@@ -129,7 +134,15 @@ class PlanDev:
                    for lvl in self.levels for bd in lvl)
 
     def _dense(self):
-        return [bd.bp for lvl in self.levels for bd in lvl if not bd.bp.blr]
+        """The dense buckets that eliminate columns (a bucket of empty
+        separators factors nothing)."""
+        return [bd.bp for lvl in self.levels for bd in lvl
+                if not bd.bp.blr and bd.bp.s_pad > 0]
+
+    def empty_buckets(self):
+        """Number of buckets of empty separators: no launch, the CB is the
+        assembled front."""
+        return sum(bd.bp.s_pad == 0 for lvl in self.levels for bd in lvl)
 
     def _blr(self):
         return [bd.bp for lvl in self.levels for bd in lvl if bd.bp.blr]
@@ -197,6 +210,16 @@ def _unpacked(packed, s):
     return tuple(t.contiguous() for t in FL.unpack_factors(packed, s))
 
 
+def _empty_front(F):
+    """(lu, perm, L21, U12, CB) of fronts that eliminate nothing: empty
+    factors, and the assembled front is the CB (the JAX package's LU of
+    [nf, 0, 0] blocks, without a launch)."""
+    nf, p, _ = F.shape
+    e = F.new_zeros((nf, 0, 0))
+    return (e, torch.zeros((nf, 0), dtype=torch.int64, device=F.device),
+            F.new_zeros((nf, p, 0)), F.new_zeros((nf, 0, p)), F)
+
+
 def _factor_bucket(F, thresh, s_pad, pivoting=True):
     """Batched partial factorization of identity-padded fronts, routed by
     shape in the order of ``strumpack_tpu/frontal/numeric.py:449-496``: K3
@@ -205,6 +228,9 @@ def _factor_bucket(F, thresh, s_pad, pivoting=True):
     pivoting or the library route.  Returns (lu, perm, L21, U12, CB)."""
     nf, p, _ = F.shape
     s = s_pad
+    if s == 0:
+        route_counts["empty"] += 1
+        return _empty_front(F)
     if FL.use_cross(s, p, F.dtype):
         route_counts["k3"] += 1
         return FL.partial_factor(F, thresh, s, pivot=pivoting)
@@ -222,7 +248,53 @@ def _factor_bucket(F, thresh, s_pad, pivoting=True):
     return FL.library_factor(F, thresh, s)
 
 
-def _factor_assembled(bp, F, thresh, tol, pivoting):
+def _factor_bucket_spd(F, s_pad):
+    """Batched partial Cholesky of SPD fronts (the reference's
+    FrontGPUSPD.cpp; ``strumpack_tpu/frontal/numeric.py:499-544``).
+    Returns (chol [nf,s,s] lower, L21 [nf,u,s], CB [nf,u,u]).
+
+    Where K3 or K2 holds the front (the LU routing), the factor comes from
+    their no-pivot outputs: for SPD F11 = L_unit D L_unit^T, so chol =
+    L_unit sqrt(D) and F21 chol^-T = L21_lu sqrt(D), two column rescales;
+    the Schur complement is the same.  Elsewhere the library
+    (``cholesky_factor``; ``cholesky_ex`` makes no host sync, and a front
+    that is not positive definite gives NaN as XLA's Cholesky does)."""
+    nf, p, _ = F.shape
+    sp = s_pad
+    if sp == 0:
+        route_counts["empty"] += 1
+        lu, _, L21, _, CB = _empty_front(F)
+        return lu, L21, CB
+    lu = None
+    if FL.use_cross(sp, p, F.dtype):
+        route_counts["k3"] += 1
+        lu, _, L21, _, CB = FL.partial_factor(F, 0.0, sp, pivot=False)
+    elif p <= FL.MAX_PALLAS_P:
+        route_counts["k2"] += 1
+        packed, _ = FL.factor_bucket(F, 0.0, sp, pivot=False)
+        lu, L21, _, CB = _unpacked(packed, sp)
+    if lu is not None:
+        d = torch.diagonal(lu, dim1=-2, dim2=-1)
+        sq = torch.sqrt(torch.clamp(d, min=torch.finfo(F.dtype).tiny))
+        Lc = torch.tril(lu, -1) * sq[:, None, :]
+        torch.diagonal(Lc, dim1=-2, dim2=-1).copy_(sq)
+        return Lc, L21 * sq[:, None, :], CB
+    route_counts["library"] += 1
+    return cholesky_factor(F, sp)
+
+
+def cholesky_factor(F, sp):
+    """The library route of SPD fronts: ``cholesky_ex`` of F11, L21 =
+    F21 L^-H by a triangular solve, CB = F22 - L21 L21^H by one GEMM.
+    Returns (L, L21, CB)."""
+    L, _ = torch.linalg.cholesky_ex(F[:, :sp, :sp])
+    L21 = torch.linalg.solve_triangular(L.mH, F[:, sp:, :sp], upper=True,
+                                        left=False)
+    CB = torch.baddbmm(F[:, sp:, sp:], L21, L21.mH, alpha=-1)
+    return L, L21, CB
+
+
+def _factor_assembled(bp, F, thresh, tol, pivoting, spd=False):
     """Factor one assembled bucket F [nf, p, p] by its front type (the
     JAX package's ``_factor_assembled`` without compressed CBs).  Returns
     (tag, factors tuple, CB)."""
@@ -235,6 +307,9 @@ def _factor_assembled(bp, F, thresh, tol, pivoting):
             nt=bp.p // t, adm_band=bp.adm_band, variant=bp.blr_variant,
             lr_algo=bp.lr_algo)
         return "blr", out[:8] + out[9:], out[8]
+    if spd:
+        L, L21, CB = _factor_bucket_spd(F, bp.s_pad)
+        return "spd", (L, L21), CB
     lu, perm, L21, U12, CB = _factor_bucket(F, thresh, bp.s_pad, pivoting)
     return "lu", (lu, perm, L21, U12), CB
 
@@ -243,12 +318,14 @@ def _record_factors(tree, key, tag, fac):
     if tag == "blr":
         tree["blr"][key] = fac[:8]
         tree["blr_ranks"][key] = fac[8]
+    elif tag == "spd":      # no perm, no U12: the solve reads L^H for U
+        tree["lu"][key], tree["L21"][key] = fac
     else:
         for name, t in zip(("lu", "perm", "L21", "U12"), fac):
             tree[name][key] = t
 
 
-def _bucket_factor_step(bd, vals_ext, cb_list, thresh, tol, pivoting):
+def _bucket_factor_step(bd, vals_ext, cb_list, thresh, tol, pivoting, spd):
     """Assemble + factor one bucket; returns (tag, factors, CB blocks
     [nf, u, u])."""
     bp = bd.bp
@@ -262,10 +339,10 @@ def _bucket_factor_step(bd, vals_ext, cb_list, thresh, tol, pivoting):
         _extend_add_blocks(F, cb_list, bd.posL, bd.pairsL)
     if bd.has_R:
         _extend_add_blocks(F, cb_list, bd.posR, bd.pairsR)
-    return _factor_assembled(bp, F, thresh, tol, pivoting)
+    return _factor_assembled(bp, F, thresh, tol, pivoting, spd)
 
 
-def _factor_impl(pdev, Avals, thresh, tol, pivoting=True):
+def _factor_impl(pdev, Avals, thresh, tol, pivoting=True, spd=False):
     """Level sweep, deepest level first.  ``cb_list`` holds only the
     previous level's CBs: they are released once this level is done."""
     vals_ext = torch.cat([Avals, torch.tensor([0.0, 1.0], dtype=Avals.dtype,
@@ -277,7 +354,7 @@ def _factor_impl(pdev, Avals, thresh, tol, pivoting=True):
         new_cbs = []
         for bi, bd in enumerate(lvl):
             tag, fac, CB = _bucket_factor_step(bd, vals_ext, cb_list, thresh,
-                                               tol, pivoting)
+                                               tol, pivoting, spd)
             _record_factors(tree, f"{li},{bi}", tag, fac)
             new_cbs.append(CB)
         cb_list = new_cbs
@@ -316,10 +393,15 @@ def _bucket_fwd_step(li, bi, bd, tree, bext, cbv_list):
         return B.blr_fwd_bucket(lud, perms, Ul, Vl, Dl, bloc, t=t,
                                 nts=bp.s_pad // t, nt=bp.p // t,
                                 adm_band=bp.adm_band)
-    lu, perm, L21 = tree["lu"][key], tree["perm"][key], tree["L21"][key]
-    bsep = torch.gather(bloc[:, :s], 1, perm[:, :, None].expand(-1, -1, nrhs))
-    y = torch.linalg.solve_triangular(lu, bsep, upper=False,
-                                      unitriangular=True)
+    lu, L21 = tree["lu"][key], tree["L21"][key]
+    if key in tree["perm"]:
+        perm = tree["perm"][key]
+        bsep = torch.gather(bloc[:, :s], 1,
+                            perm[:, :, None].expand(-1, -1, nrhs))
+        y = torch.linalg.solve_triangular(lu, bsep, upper=False,
+                                          unitriangular=True)
+    else:                   # SPD (Cholesky) bucket
+        y = torch.linalg.solve_triangular(lu, bloc[:, :s], upper=False)
     cbv = bloc[:, s:] - torch.matmul(L21, y)
     return y, cbv
 
@@ -339,9 +421,13 @@ def _bucket_bwd_step(li, bi, bd, tree, y, xext):
         xsep = B.blr_bwd_bucket(lud, Uu, Vu, Du, y, xupd, t=t,
                                 nts=bp.s_pad // t, nt=bp.p // t,
                                 adm_band=bp.adm_band)
-    else:
+    elif key in tree["perm"]:
         z = y - torch.matmul(tree["U12"][key], xupd)
         xsep = torch.linalg.solve_triangular(tree["lu"][key], z, upper=True)
+    else:                   # SPD (Cholesky) bucket: L^H in place of U
+        z = y - torch.matmul(tree["L21"][key].mH, xupd)
+        xsep = torch.linalg.solve_triangular(tree["lu"][key].mH, z,
+                                             upper=True)
     xext[bd.sep_glob.reshape(-1)] = xsep.reshape(-1, nrhs)
     xext[n] = 0
     return xext
@@ -375,8 +461,10 @@ def _solve_impl(pdev, tree, b):
 class Factors:
     """Numeric factors in level-batched layout (the JAX package's
     ``Factors.tree``): ``tree[name]["li,bi"]`` for name in lu, perm, L21,
-    U12 (dense buckets), blr (the BLR bucket tuple ``(lud, perms, Uu, Vu,
-    Ul, Vl, Du, Dl)``) and blr_ranks (``[nf, nts, nt, 2]`` tile ranks)."""
+    U12 (dense buckets; an SPD bucket has its Cholesky factor under lu,
+    L21, and no perm or U12), blr (the BLR bucket tuple ``(lud, perms,
+    Uu, Vu, Ul, Vl, Du, Dl)``) and blr_ranks (``[nf, nts, nt, 2]`` tile
+    ranks)."""
 
     def __init__(self, pdev: PlanDev, dtype, tree):
         self.pdev = pdev
@@ -412,6 +500,48 @@ class Factors:
                     and int(rk.max()) >= bp.max_rank):
                 out.add(tuple(map(int, key.split(","))))
         return out
+
+    def inertia(self):
+        """(n_pos, n_neg, n_zero, exact) from the diagonals of U (of the
+        Cholesky factors for SPD buckets) over the real separator columns;
+        ``exact`` is False when any bucket's row permutation is not the
+        identity (SparseSolverBase.hpp:368: inertia is exact only without
+        row pivoting).  ``perm`` is the applied form for every route, so
+        the identity means no row moved."""
+        npos = nneg = nzero = 0
+        exact = True
+        for key, lu in self.tree["lu"].items():
+            bp = self._bp(key)
+            d = torch.diagonal(lu, dim1=-2, dim2=-1).real.cpu().numpy()
+            mask = np.arange(bp.s_pad)[None, :] < np.asarray(bp.ds)[:, None]
+            npos += int(((d > 0) & mask).sum())
+            nneg += int(((d < 0) & mask).sum())
+            nzero += int(((d == 0) & mask).sum())
+            perm = self.tree["perm"].get(key)
+            if perm is not None and bool(
+                    (perm != torch.arange(perm.shape[-1],
+                                          device=perm.device)).any()):
+                exact = False
+        return npos, nneg, nzero, exact
+
+    def subnormals(self) -> int:
+        """Subnormal entries in the dense factors lu, L21 and U12 (the
+        reference's diagnostic, SparseSolverBase.hpp:368-372)."""
+        cnt = 0
+        for name in ("lu", "L21", "U12"):
+            for v in self.tree[name].values():
+                if v.numel():
+                    a = v.abs()
+                    tiny = torch.finfo(a.dtype).tiny
+                    cnt += int(((a > 0) & (a < tiny)).sum())
+        return cnt
+
+    def pivot_growth(self, amax: float) -> float:
+        """max |lu| over the dense factors / max |A| (the reference's
+        pivot-growth diagnostic, SparseSolverBase.hpp:368-372)."""
+        m = max((float(lu.abs().max()) for lu in self.tree["lu"].values()
+                 if lu.numel()), default=0.0)
+        return m / max(amax, 1e-300)
 
     def effective_factor_flops(self) -> int:
         """Factorization flops counted at the achieved tile ranks
@@ -518,10 +648,11 @@ def factor_peak_bytes(pdev, itemsize: int) -> int:
 
 
 def factorize(pdev: PlanDev, Avals, thresh=0.0, dtype=None, blr_tol=1e-4,
-              pivoting=True) -> Factors:
+              pivoting=True, spd=False) -> Factors:
     """Numeric factorization of the permuted matrix values ``Avals``
     (numpy or tensor) on ``pdev.device``; ``blr_tol`` is the BLR tiles'
-    relative compression tolerance."""
+    relative compression tolerance; ``spd`` factors the dense fronts by
+    partial Cholesky (``thresh`` and ``pivoting`` then do not apply)."""
     use_full_fp32_matmul()
     Avals = torch.as_tensor(np.asarray(Avals) if not torch.is_tensor(Avals)
                             else Avals, device=pdev.device)
@@ -535,7 +666,7 @@ def factorize(pdev: PlanDev, Avals, thresh=0.0, dtype=None, blr_tol=1e-4,
         if peak > budget:
             raise MemoryError(f"factorization needs ~{peak / 1e9:.1f} GB "
                               f"(model), device has {budget / 1e9:.1f} GB")
-    tree = _factor_impl(pdev, Avals, thresh, blr_tol, pivoting)
+    tree = _factor_impl(pdev, Avals, thresh, blr_tol, pivoting, spd)
     return Factors(pdev, Avals.dtype, tree)
 
 

@@ -145,7 +145,7 @@ def factor_bucket(F, thresh, s_pad, pivot=True):
     perm [nf,s_pad]): packed[:s,:s] = L\\U of P F11, [:s,s:] = U12,
     [s:,:s] = L21, [s:,s:] = CB (``unpack_factors``).  CPU tensors take the
     plain version; CUDA tensors launch the kernel (``factor_bucket.launches``
-    counts launches)."""
+    counts launches, ``factor_bucket.modes`` them by pivot mode)."""
     if F.device.type == "cpu":
         return factor_bucket_plain(F, thresh, s_pad, pivot)
     _check_kernel_input(F, "factor_bucket")
@@ -163,10 +163,12 @@ def factor_bucket(F, thresh, s_pad, pivot=True):
         float(thresh), int(bool(pivot)), wb, fpc, stream)
     _build.check(lib, "small_lu", err)
     factor_bucket.launches += 1
+    factor_bucket.modes["pivot" if pivot else "nopivot"] += 1
     return packed, perm
 
 
 factor_bucket.launches = 0
+factor_bucket.modes = {"pivot": 0, "nopivot": 0}
 
 
 def unpack_factors(packed, s_pad):
@@ -373,7 +375,8 @@ def _k3_launch(nf, p, s, dtype, index):
 def partial_factor(F, thresh, s, pivot=True):
     """K3: partial LU of the fronts F [nf, p, p] over their s leading
     columns.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel (``partial_factor.launches`` counts launches)."""
+    kernel (``partial_factor.launches`` counts launches,
+    ``partial_factor.modes`` them by pivot mode)."""
     if F.device.type == "cpu":
         return partial_factor_plain(F, thresh, s, pivot)
     _check_kernel_input(F, "partial_factor")
@@ -391,10 +394,12 @@ def partial_factor(F, thresh, s, pivot=True):
              nw, fpc, _build.stream(F.device))
     _build.check(lib, "front_lu", err)
     partial_factor.launches += 1
+    partial_factor.modes["pivot" if pivot else "nopivot"] += 1
     return lu, perm, L21, U12, _schur(F, L21, U12, s)
 
 
 partial_factor.launches = 0
+partial_factor.modes = {"pivot": 0, "nopivot": 0}
 
 
 def lapack_pivots_to_perm(lu, piv):

@@ -3,17 +3,23 @@
 Role of the reference's ``SparseSolverBase`` + ``SparseSolver``
 (SparseSolverBase.cpp:304-721: reorder -> factor -> solve, equilibration,
 rhs transforms, statistics), the counterpart of ``strumpack_tpu/solver.py``
-for the exact and the BLR multifrontal paths:
+for the exact (LU with or without pivoting, or Cholesky) and the BLR
+multifrontal paths:
 
-  reorder():  host — equilibration, pattern symmetrization, geometric nested
-              dissection (+ separator reordering under compression),
+  reorder():  host — MC64-family matching and scaling, equilibration,
+              pattern symmetrization, a fill-reducing ordering (geometric,
+              BFS or multilevel nested dissection, spectral, natural, RCM,
+              AMD, MMD, MLF; separator reordering under compression),
               symbolic factorization, level/bucket plan
   factor():   device — level-batched numeric factorization (dense or BLR
               fronts), with the adaptive-rank restart under compression
   solve():    device — multifrontal solve, directly, inside iterative
-              refinement or as the preconditioner of GMRES/BiCGStab
+              refinement (in the refine dtype, or double-float for
+              ``float32x2``) or as the preconditioner of GMRES/BiCGStab
               (AUTO: refinement for exact factors, PREC_GMRES under
-              compression)
+              compression), from zero or an initial guess
+
+and the factor diagnostics (inertia, pivot growth, subnormals).
 
 The device is CUDA unless the caller asks for another (``device="cpu"``);
 without CUDA and without an explicit device the constructor raises.
@@ -41,6 +47,60 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def _double_float(opts) -> bool:
+    """Whether refinement runs in double-float (``float32x2``)."""
+    return opts.refine_dtype in ("float32x2", "df32")
+
+
+def _order(opts, Asym):
+    """(perm, iperm, tree) of the fill-reducing ordering ``opts`` names on
+    the symmetrized pattern ``Asym`` (``strumpack_tpu/solver.py:183-248``).
+    The METIS-family names take the native multilevel bisection (HEM
+    coarsening + FM + vertex-cover separators), ND/AND the native BFS
+    level-set bisection (ANDSparspak role); the parallel names
+    (PARMETIS, PTSCOTCH) take the same single-process multilevel
+    splitter.  RCM, AMD, MMD and MLF orderings get their tree from the
+    etree, with relaxed amalgamation composed into the permutation."""
+    R = ReorderingStrategy
+    m = opts.reordering_method
+    n = Asym.n
+    if m == R.GEOMETRIC:
+        from .sparse.ordering.geometric import geometric_nd
+        return geometric_nd(opts.nx, opts.ny, opts.nz,
+                            components=opts.components,
+                            width=opts.separator_width, leaf=opts.nd_leaf)
+    if m in (R.ND, R.AND, R.METIS, R.PARMETIS, R.SCOTCH, R.PTSCOTCH,
+             R.SPECTRAL):
+        from .sparse.ordering.nd import nested_dissection
+        splitter = {R.ND: "bfs", R.AND: "bfs",
+                    R.SPECTRAL: "spectral"}.get(m, "ml")
+        return nested_dissection(Asym.rowptr, Asym.colind, n,
+                                 leaf=opts.nd_leaf, splitter=splitter)
+    from .sparse.separator_tree import from_etree_perm
+    if m == R.NATURAL:
+        perm = np.arange(n, dtype=np.int64)
+        return perm, perm, from_etree_perm(Asym.rowptr, Asym.colind, n,
+                                           perm, perm, leaf=opts.nd_leaf)
+    if m == R.RCM:
+        from scipy.sparse.csgraph import reverse_cuthill_mckee
+        perm = np.asarray(reverse_cuthill_mckee(Asym.to_scipy(),
+                                                symmetric_mode=True),
+                          dtype=np.int64)
+    elif m in (R.AMD, R.MMD, R.MLF):
+        from .sparse.ordering import amd
+        order = {R.AMD: amd.amd_order, R.MMD: amd.mmd_order,
+                 R.MLF: amd.mlf_order}[m]
+        perm = order(Asym.rowptr, Asym.colind, n)
+    else:
+        raise ValueError(f"reordering method {m}")
+    iperm = np.empty_like(perm)
+    iperm[perm] = np.arange(n)
+    # relaxed amalgamation (SYMQAMD role) composes an extra permutation
+    # that pulls small child supernodes into their parents
+    return from_etree_perm(Asym.rowptr, Asym.colind, n, perm, iperm,
+                           leaf=opts.nd_leaf, return_perm=True)
+
+
 class SparseSolver:
     def __init__(self, opts: SPOptions | None = None, device=None,
                  verbose=None):
@@ -60,6 +120,10 @@ class SparseSolver:
         self.ell = None        # device spmv operator on Ap
         self.dr = None
         self.dc = None
+        self.mq = None         # matching column permutation
+        self.mdr = None        # matching row / column scalings
+        self.mdc = None
+        self.ell_lo = None     # lo halves of Ap's values (float32x2)
         self.times = {}
         self.its = 0
         self.achieved_rtol = 0.0
@@ -76,13 +140,7 @@ class SparseSolver:
              f"compression {opts.compression.name}"),
             (opts.blr.cb_compression and
              opts.compression == CompressionType.BLR,
-             "BLR-compressed contribution blocks"),
-            (opts.matching != MatchingJob.NONE,
-             f"matching {opts.matching.name}"),
-            (opts.positive_definite, "the SPD (Cholesky) path"),
-            (not opts.pivoting, "factorization without pivoting"),
-            (opts.refine_dtype in ("float32x2", "df32"),
-             "double-float refinement")]
+             "BLR-compressed contribution blocks")]
         for bad, what in unsupported:
             if bad:
                 raise NotImplementedError(f"{what} is not ported yet")
@@ -111,11 +169,16 @@ class SparseSolver:
 
     # -- phases ------------------------------------------------------------
     def _rescale_and_permute(self):
-        """Scale, symmetrize the pattern, and permute.  The factored/spmv'd
-        matrix Ap always carries the symmetrized pattern (explicit zeros
-        where only A^T has entries) so the assembly plan's value indices
-        stay valid under update_matrix_values."""
+        """Match, scale, symmetrize the pattern, and permute.  The
+        factored/spmv'd matrix Ap always carries the symmetrized pattern
+        (explicit zeros where only A^T has entries) so the assembly plan's
+        value indices stay valid under update_matrix_values.  The matching
+        q stays fixed; its scalings follow the values."""
         A = self.A
+        if self.mq is not None:
+            from .sparse.matching import apply_matching, matching_scaling
+            self.mdr, self.mdc = matching_scaling(A, self.mq)
+            A = apply_matching(A, self.mq, self.mdr, self.mdc)
         if self.opts.equilibration:
             from .options import EquilibrationType
             dr, dc, *_ = A.equilibration()
@@ -124,7 +187,7 @@ class SparseSolver:
                 dc = np.ones_like(dc)
             elif et == EquilibrationType.COLUMN:
                 dr = np.ones_like(dr)
-            if self.opts.symmetric:
+            if self.opts.symmetric or self.opts.positive_definite:
                 # symmetry-preserving scaling: D A D with D = sqrt(dr)
                 dr = dc = np.sqrt(dr * dc) if not np.allclose(dr, dc) else dr
             self.dr, self.dc = dr, dc
@@ -136,8 +199,21 @@ class SparseSolver:
                 else self.Ascaled.symmetrize_sparsity())
         self.Ap = Asym.permute(self.perm, self.iperm)
         from .ops.spmv import DeviceELL
-        self.ell = DeviceELL(self.Ap, dtype=np.dtype(self.opts.refine_dtype),
-                             device=self.device)
+        self.ell_lo = None
+        if _double_float(self.opts):
+            # A itself in hi + lo f32 pairs: with hi-only values the
+            # componentwise residual floor is eps_f32 * |A| ~ 1e-8, not
+            # the 1e-10 contract (StrumpackOptions.hpp:186-197)
+            self.ell = DeviceELL(self.Ap, dtype=np.float32,
+                                 device=self.device)
+            Alo = self.Ap.copy()
+            d64 = np.asarray(self.Ap.data, np.float64)
+            Alo.data = d64 - d64.astype(np.float32).astype(np.float64)
+            self.ell_lo = DeviceELL(Alo, dtype=np.float32, device=self.device)
+        else:
+            self.ell = DeviceELL(self.Ap,
+                                 dtype=np.dtype(self.opts.refine_dtype),
+                                 device=self.device)
 
     def reorder(self, nx=None, ny=None, nz=None) -> ReturnCode:
         if self.A is None:
@@ -145,29 +221,47 @@ class SparseSolver:
         self._check_supported()
         t0 = time.perf_counter()
         opts = self.opts
+        A = self.A
         if nx is not None:
             opts.nx, opts.ny, opts.nz = nx, ny or 1, nz or 1
             opts.reordering_method = ReorderingStrategy.GEOMETRIC
-        if opts.reordering_method != ReorderingStrategy.GEOMETRIC:
-            raise NotImplementedError(
-                f"reordering {opts.reordering_method.name}: only GEOMETRIC "
-                "(reorder(nx, ny, nz)) is ported yet")
-        from .sparse.ordering.geometric import geometric_nd
-        perm, iperm, tree = geometric_nd(
-            opts.nx, opts.ny, opts.nz, components=opts.components,
-            width=opts.separator_width, leaf=opts.nd_leaf)
+
+        # column matching for stability (SparseSolverBase.cpp:327-334)
+        self.mq = self.mdr = self.mdc = None
+        if opts.matching != MatchingJob.NONE:
+            from .sparse import matching as M
+            match_fn = {
+                MatchingJob.MAX_CARDINALITY: M.max_cardinality_matching,
+                MatchingJob.MAX_SMALLEST_DIAGONAL:
+                    M.max_smallest_diagonal_matching,
+                MatchingJob.MAX_SMALLEST_DIAGONAL_2:
+                    M.max_smallest_diagonal_matching,
+                MatchingJob.MAX_DIAGONAL_SUM: M.max_diagonal_sum_matching,
+                MatchingJob.MAX_DIAGONAL_PRODUCT_SCALING:
+                    M.max_product_matching,
+                MatchingJob.COMBBLAS: M.awpm_matching,
+            }[opts.matching]
+            t1 = time.perf_counter()
+            self.mq, self.mdr, self.mdc = match_fn(A)
+            self.times["matching"] = time.perf_counter() - t1
+            A = M.apply_matching(A, self.mq, self.mdr, self.mdc)
+
+        # pattern symmetrization for the ordering and symbolic analysis
+        # (SparseSolverBase.cpp:353)
+        Asym = A if A.symm_sparse else A.symmetrize_sparsity()
+        perm, iperm, tree = _order(opts, Asym)
+
         if opts.compression != CompressionType.NONE:
             # separator reordering (MatrixReordering.cpp:159): re-partition
             # each big separator's graph so BLR tiles are graph clusters;
             # composed into perm before symbolic factorization
             from .sparse.ordering.separator_reorder import \
                 separator_reordering
-            A = self.A if self.A.symm_sparse else self.A.symmetrize_sparsity()
-            q = separator_reordering(A.permute(perm, iperm), tree, opts)
+            q = separator_reordering(Asym.permute(perm, iperm), tree, opts)
             if q is not None:
                 perm = perm[q]
                 iperm = np.empty_like(perm)
-                iperm[perm] = np.arange(self.A.n)
+                iperm[perm] = np.arange(A.n)
         self.perm, self.iperm, self.tree = perm, iperm, tree
         self._rescale_and_permute()
 
@@ -215,7 +309,8 @@ class SparseSolver:
             self.factor_passes += 1
             return numeric.factorize(self.pdev, self.Ap.data, thresh=thresh,
                                      dtype=fdt, blr_tol=opts.blr.rel_tol,
-                                     pivoting=opts.pivoting)
+                                     pivoting=opts.pivoting,
+                                     spd=opts.positive_definite)
 
         self.factor_passes = 0
         self.fac = run_factor()
@@ -281,6 +376,8 @@ class SparseSolver:
     # -- rhs / solution transforms (SparseSolver.cpp:175-256) -------------
     def _transform_b(self, b):
         b = np.asarray(b)
+        if self.mdr is not None:
+            b = b * (self.mdr if b.ndim == 1 else self.mdr[:, None])
         if self.dr is not None:
             b = b * (self.dr if b.ndim == 1 else self.dr[:, None])
         return b[self.perm]
@@ -289,12 +386,27 @@ class SparseSolver:
         x = np.asarray(xp)[self.iperm]
         if self.dc is not None:
             x = x * (self.dc if x.ndim == 1 else self.dc[:, None])
+        if self.mq is not None:
+            # undo the column permutation: x_scaled[q[j]] = z[j]
+            y = np.empty_like(x)
+            y[self.mq] = x
+            x = y * (self.mdc if x.ndim == 1 else self.mdc[:, None])
         return x
 
+    def _untransform_x0(self, x0):
+        """An initial guess of A x = b in the permuted, scaled system (the
+        inverse of ``_transform_x``)."""
+        x = np.asarray(x0)
+        if self.mq is not None:
+            x = (x / (self.mdc if x.ndim == 1 else self.mdc[:, None]))[
+                self.mq]
+        if self.dc is not None:
+            x = x / (self.dc if x.ndim == 1 else self.dc[:, None])
+        return x[self.perm]
+
     def solve(self, b, x0=None):
-        """Solve A x = b for b [n] or [n, nrhs]; returns (x, ReturnCode)."""
-        if x0 is not None:
-            raise NotImplementedError("an initial guess is not ported yet")
+        """Solve A x = b for b [n] or [n, nrhs], from the initial guess
+        ``x0`` (b's shape) or from zero; returns (x, ReturnCode)."""
         if self.A is None:
             return None, ReturnCode.MATRIX_NOT_SET
         if not self._factored:
@@ -305,8 +417,13 @@ class SparseSolver:
         opts = self.opts
         t0 = time.perf_counter()
         bp = self._transform_b(b)
+        x0p = None if x0 is None else self._untransform_x0(x0)
+        if _double_float(opts):
+            return self._solve_double_float(bp, x0p, t0)
         rdt = getattr(torch, np.dtype(opts.refine_dtype).name)
         bdev = torch.as_tensor(bp, device=self.device).to(rdt)
+        x0dev = (None if x0p is None
+                 else torch.as_tensor(x0p, device=self.device).to(rdt))
         solver = opts.krylov_solver
         if solver == KrylovSolver.AUTO:
             solver = (KrylovSolver.REFINE
@@ -325,9 +442,9 @@ class SparseSolver:
             from .krylov.refine import iterative_refinement
             xdev, self.its, self.achieved_rtol = iterative_refinement(
                 self.fac, self.ell, bdev, opts.rel_tol, opts.abs_tol,
-                opts.maxit)
+                opts.maxit, x0=x0dev)
         else:
-            xdev = self._krylov(solver, bdev)
+            xdev = self._krylov(solver, bdev, x0dev)
         x = self._transform_x(xdev.cpu().numpy())
         self.times["solve"] = time.perf_counter() - t0
         # solve-phase flop counter: per iteration one spmv (2 nnz) + one
@@ -344,10 +461,46 @@ class SparseSolver:
             rc = ReturnCode.NO_CONVERGENCE
         return x, rc
 
-    def _krylov(self, solver, bdev):
+    def _solve_double_float(self, bp, x0p, t0):
+        """Double-float refinement (``float32x2``, ``strumpack_tpu/
+        solver.py:460-484``): f32 corrections from the factors, residuals
+        of the hi + lo split of A in compensated f32 pairs
+        (``ops/twofloat.py``); several right-hand sides column by column.
+        Returns (x, ReturnCode)."""
+        from .ops.twofloat import df_from_f64, df_iterative_refinement, \
+            df_to_f64
+        opts = self.opts
+
+        def dev(a):
+            return torch.as_tensor(a, device=self.device)
+
+        B = bp[:, None] if bp.ndim == 1 else bp
+        X0 = None if x0p is None else (
+            x0p[:, None] if x0p.ndim == 1 else x0p)
+        cols, self.its, self.achieved_rtol = [], 0, 0.0
+        for j in range(B.shape[1]):
+            bh, bl = df_from_f64(B[:, j])
+            start = None if X0 is None else tuple(
+                dev(a) for a in df_from_f64(X0[:, j]))
+            xh, xl, its, rel = df_iterative_refinement(
+                self.fac, self.ell, self.ell_lo, dev(bh), dev(bl),
+                opts.rel_tol, opts.abs_tol, opts.maxit, x0=start)
+            cols.append(df_to_f64(xh.cpu().numpy(), xl.cpu().numpy()))
+            self.its = max(self.its, its)
+            self.achieved_rtol = max(self.achieved_rtol, rel)
+        xp = cols[0] if bp.ndim == 1 else np.stack(cols, axis=1)
+        x = self._transform_x(xp)
+        self.times["solve"] = time.perf_counter() - t0
+        rc = (ReturnCode.SUCCESS if self.its < opts.maxit
+              or self.achieved_rtol <= opts.rel_tol
+              else ReturnCode.NO_CONVERGENCE)
+        return x, rc
+
+    def _krylov(self, solver, bdev, x0dev=None):
         """GMRES or BiCGStab (``krylov/solvers.py``) on the permuted
-        system, preconditioned by the multifrontal solve for PREC_*;
-        several right-hand sides solve column by column."""
+        system, preconditioned by the multifrontal solve for PREC_*,
+        from ``x0dev`` or zero; several right-hand sides solve column by
+        column."""
         from .frontal import numeric
         from .krylov import solvers as K
         opts = self.opts
@@ -358,11 +511,11 @@ class SparseSolver:
         def prec(r):
             return numeric.solve(self.fac, r).to(r.dtype)
 
-        def one(bcol):
+        def one(bcol, x0col):
             if solver in (KrylovSolver.PREC_GMRES, KrylovSolver.GMRES):
                 return K.gmres(
                     spmv, prec if solver == KrylovSolver.PREC_GMRES else None,
-                    bcol, rtol=opts.rel_tol, atol=opts.abs_tol,
+                    bcol, x0=x0col, rtol=opts.rel_tol, atol=opts.abs_tol,
                     maxit=opts.maxit, restart=opts.gmres_restart,
                     gram_schmidt=opts.gram_schmidt.value,
                     verbose=opts.verbose)
@@ -370,16 +523,18 @@ class SparseSolver:
                 return K.bicgstab(
                     spmv,
                     prec if solver == KrylovSolver.PREC_BICGSTAB else None,
-                    bcol, rtol=opts.rel_tol, atol=opts.abs_tol,
+                    bcol, x0=x0col, rtol=opts.rel_tol, atol=opts.abs_tol,
                     maxit=opts.maxit, verbose=opts.verbose)
             raise ValueError(solver)
 
         if bdev.ndim == 1:
-            x, self.its, self.achieved_rtol = one(bdev)
+            x, self.its, self.achieved_rtol = one(bdev, x0dev)
             return x
         cols, self.its = [], 0
         for j in range(bdev.shape[1]):
-            x, its, self.achieved_rtol = one(bdev[:, j].contiguous())
+            x, its, self.achieved_rtol = one(
+                bdev[:, j].contiguous(),
+                None if x0dev is None else x0dev[:, j].contiguous())
             cols.append(x)
             self.its += its
         return torch.stack(cols, dim=1)
@@ -393,3 +548,53 @@ class SparseSolver:
 
     def factor_flops(self) -> int:
         return self.plan.factor_flops if self.plan else 0
+
+    def inertia(self):
+        """(n_pos, n_neg, n_zero, ReturnCode) of the factored matrix
+        (SparseSolverBase::inertia); INACCURATE_INERTIA when pivoting moved
+        a row."""
+        if not self._factored:
+            self.factor()
+        npos, nneg, nzero, exact = self.fac.inertia()
+        rc = (ReturnCode.SUCCESS if exact
+              else ReturnCode.INACCURATE_INERTIA)
+        return npos, nneg, nzero, rc
+
+    def pivot_growth(self) -> float:
+        """max |factor entry| / max |A entry| of the factored matrix."""
+        if not self._factored:
+            self.factor()
+        return self.fac.pivot_growth(float(np.abs(self.Ap.data).max()))
+
+    def subnormals(self) -> int:
+        """Count of subnormal entries in the factors
+        (SparseSolverBase.hpp:368-372 subnormals diagnostic)."""
+        if not self._factored:
+            self.factor()
+        return self.fac.subnormals()
+
+    def draw(self, path: str) -> None:
+        """Write a gnuplot-compatible picture of the factor layout
+        (EliminationTree::draw, EliminationTree.cpp:213): one rectangle
+        per front's F11/F12/F21 blocks in matrix coordinates."""
+        if not self._reordered:
+            self.reorder()
+        tree, upd = self.tree, self.plan.upd
+        with open(path, "w") as f:
+            f.write("# gnuplot: plot '%s' with boxxy\n" % path)
+            f.write("# x y xlow xhigh ylow yhigh (front blocks)\n")
+            for i in range(tree.nseps):
+                sb, se = int(tree.sep_begin[i]), int(tree.sep_end[i])
+                if se <= sb:
+                    continue
+                c = (sb + se) / 2.0
+                f.write(f"{c} {c} {sb} {se} {sb} {se}\n")
+                for u in upd[i]:
+                    f.write(f"{c} {u} {sb} {se} {u} {u+1}\n")
+                    f.write(f"{u} {c} {u} {u+1} {sb} {se}\n")
+
+    def delete_factors(self) -> None:
+        """Free the numeric factors, keep the symbolic analysis
+        (SparseSolverBase.cpp:723)."""
+        self.fac = None
+        self._factored = False

@@ -347,3 +347,124 @@ def test_front_lu_rejects_what_it_cannot_launch(cuda_device):
     with pytest.raises(ValueError, match="w <= 128"):
         PP.panel_lu(torch.zeros(1, 256, 129, device=cuda_device), 0.0, 0,
                     129, 256)
+
+
+def _solve_on(device, A, b, **opts):
+    """The port's solver on ``device`` with f64 factors, DIRECT: (x, the
+    solver)."""
+    import strumpack_tpu_torch as st
+    o = st.SPOptions(factor_dtype="float64", refine_dtype="float64",
+                     krylov_solver=st.KrylovSolver.DIRECT, **opts)
+    s = st.SparseSolver(o, device=device)
+    s.set_csr_matrix(A)
+    x, rc = s.solve(b)
+    assert rc == st.ReturnCode.SUCCESS
+    return x, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["spd", "nopivot"])
+def test_spd_and_nopivot_paths_match_the_cpu(cuda_device, case):
+    """The SPD (Cholesky) and the no-pivot paths on the card against the
+    port on the CPU: K3 and K2 launched in no-pivot mode only, the
+    factors and the solution equal to rounding."""
+    import strumpack_tpu_torch as st
+    from strumpack_tpu_torch.sparse.gen import anisotropic3d, poisson3d
+    if case == "spd":
+        A, opts = poisson3d(12), dict(symmetric=True, positive_definite=True)
+    else:
+        A, opts = anisotropic3d(12), dict(pivoting=False)
+    b = A.spmv(np.random.default_rng(0).standard_normal(A.n))
+    x_cpu, s_cpu = _solve_on("cpu", A, b, **opts)
+    before = {k: dict(f.modes) for k, f in
+              (("k3", FL.partial_factor), ("k2", FL.factor_bucket))}
+    x, s = _solve_on(cuda_device, A, b, **opts)
+    k3 = FL.partial_factor.modes["nopivot"] - before["k3"]["nopivot"]
+    assert k3 == s.pdev.k3_buckets(torch.float64) > 0
+    assert FL.partial_factor.modes["pivot"] == before["k3"]["pivot"]
+    assert FL.factor_bucket.modes["pivot"] == before["k2"]["pivot"]
+    np.testing.assert_allclose(x, x_cpu, rtol=0, atol=1e-10 * np.abs(x).max())
+    assert A.max_scaled_residual(x, b) < 1e-12
+    for key, lu in s_cpu.fac.tree["lu"].items():
+        torch.testing.assert_close(s.fac.tree["lu"][key].cpu(), lu,
+                                   rtol=1e-10, atol=1e-12)
+    if case == "spd":
+        assert s.inertia()[:3] == (A.n, 0, 0)
+        assert s.inertia()[3] == st.ReturnCode.SUCCESS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nf,p,s", [(128, 40, 16), (16, 152, 24),
+                                    (64, 12, 4), (1, 48, 48)])
+def test_nopivot_kernels_at_spd_shapes(cuda_device, dtype, nf, p, s):
+    """K3 (s < p, the shapes it holds) and K2 (p <= 64 with s < 8, or a
+    root front s = p) without pivoting, bit-exact against their plain
+    versions on SPD fronts, as the Cholesky path calls them."""
+    gen = torch.Generator().manual_seed(nf * p + s)
+    G = torch.randn(nf, p, p, generator=gen, dtype=torch.float64)
+    F = (G @ G.mT + p * torch.eye(p, dtype=torch.float64)).to(dtype)
+    F = F.to(cuda_device)
+    if FL.use_cross(s, p, dtype):
+        got = FL.partial_factor(F, 0.0, s, pivot=False)
+        want = FL.partial_factor_plain(F, 0.0, s, pivot=False)
+    else:
+        assert p <= FL.MAX_PALLAS_P
+        got = FL.factor_bucket(F, 0.0, s, pivot=False)
+        want = FL.factor_bucket_plain(F, 0.0, s, pivot=False)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_empty_separator_fronts(cuda_device):
+    """AMD's etree binarization makes buckets of empty separators (s = 0):
+    they launch no LU kernel, pass their assembled fronts on as the CB
+    through K1, and the solution equals the CPU's."""
+    import strumpack_tpu_torch as st
+    from strumpack_tpu_torch.frontal import numeric
+    from strumpack_tpu_torch.sparse.gen import poisson3d
+    A = poisson3d(8)
+    b = A.spmv(np.random.default_rng(1).standard_normal(A.n))
+    opts = dict(reordering_method=st.ReorderingStrategy.AMD)
+    x_cpu, _ = _solve_on("cpu", A, b, **opts)
+    numeric.route_counts["empty"] = 0
+    ea = extend_add.launches
+    x, s = _solve_on(cuda_device, A, b, **opts)
+    assert numeric.route_counts["empty"] == s.pdev.empty_buckets() > 0
+    assert extend_add.launches - ea == s.pdev.ea_pairs()
+    np.testing.assert_allclose(x, x_cpu, rtol=0, atol=1e-10 * np.abs(x).max())
+
+
+def _every_option():
+    import strumpack_tpu_torch as st
+    out = [dict(reordering_method=m) for m in st.ReorderingStrategy
+           if m.name != "GEOMETRIC"]
+    out += [dict(matching=m) for m in st.MatchingJob if m.name != "NONE"]
+    out += [dict(positive_definite=True, symmetric=True),
+            dict(pivoting=False),
+            dict(factor_dtype="float32", refine_dtype="float32x2",
+                 rel_tol=1e-12, abs_tol=1e-13),
+            dict(factor_dtype="float32", refine_dtype="float64",
+                 rel_tol=1e-12)]
+    return out
+
+
+@pytest.mark.cuda
+def test_every_option_solves_without_a_grid(cuda_device):
+    """On the card, ``SparseSolver(SPOptions(...))`` with every ordering
+    but GEOMETRIC, every matching, the SPD and no-pivot paths and the
+    mixed and double-float refinements solves a matrix given without a
+    grid, from zero and from an initial guess."""
+    import strumpack_tpu_torch as st
+    from strumpack_tpu_torch.sparse.gen import random_spd
+    A = random_spd(300, seed=3)
+    b = A.spmv(np.random.default_rng(2).standard_normal(A.n))
+    for kw in _every_option():
+        s = st.SparseSolver(st.SPOptions(**kw), device=cuda_device)
+        s.set_csr_matrix(A)
+        x, rc = s.solve(b)
+        assert rc == st.ReturnCode.SUCCESS, kw
+        assert A.max_scaled_residual(x, b) < 1e2 * s.opts.rel_tol, kw
+        x0, rc = s.solve(b, x0=x)
+        assert rc == st.ReturnCode.SUCCESS and s.Krylov_iterations() <= 1, kw

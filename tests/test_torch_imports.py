@@ -31,9 +31,10 @@ def _imports(path):
 
 def test_package_run_imports_no_jax():
     """A fresh interpreter (no test conftest) imports the package and runs
-    its host pipeline, a small CPU solve and a small BLR + GMRES solve: no
-    jax* and no
-    strumpack_tpu.* module may appear in sys.modules."""
+    its host pipeline, a small CPU solve, a small BLR + GMRES solve and
+    the general-input paths (no grid, every ordering module, matching,
+    SPD, double float): no jax* and no strumpack_tpu.* module may appear
+    in sys.modules."""
     code = (
         "import sys, numpy as np\n"
         "import strumpack_tpu_torch as st\n"
@@ -54,6 +55,16 @@ def test_package_run_imports_no_jax():
         "assert any(bp.blr for lvl in s.plan.levels for bp in lvl)\n"
         "x, rc = s.solve(A.spmv(np.ones(A.n)))\n"
         "assert rc == st.ReturnCode.SUCCESS\n"
+        "for kw in (dict(), dict(reordering_method=st.ReorderingStrategy.AMD),\n"
+        "           dict(reordering_method=st.ReorderingStrategy.SPECTRAL),\n"
+        "           dict(matching=st.MatchingJob.MAX_DIAGONAL_PRODUCT_SCALING,\n"
+        "                positive_definite=True),\n"
+        "           dict(factor_dtype='float32', refine_dtype='float32x2',\n"
+        "                rel_tol=1e-12, abs_tol=1e-13)):\n"
+        "    s = st.SparseSolver(st.SPOptions(**kw), device='cpu')\n"
+        "    s.set_csr_matrix(A)\n"
+        "    x, rc = s.solve(A.spmv(np.ones(A.n)))\n"
+        "    assert rc == st.ReturnCode.SUCCESS, kw\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax')"
         " or m == 'strumpack_tpu' or m.startswith('strumpack_tpu.')]\n"
         "print(bad)\n"
@@ -74,7 +85,9 @@ def test_sources_import_no_jax():
     names = {os.path.relpath(f, PKG) for f in files}
     for mod in ("ops/rrqr.py", "ops/panel_lu.py", "frontal/blr.py",
                 "krylov/solvers.py", "sparse/ordering/nd.py",
-                "sparse/ordering/separator_reorder.py"):
+                "sparse/ordering/separator_reorder.py", "ops/twofloat.py",
+                "sparse/matching.py", "sparse/ordering/amd.py",
+                "native/__init__.py"):
         assert mod in names, mod
     assert len(files) > 20 and not bad, bad
 

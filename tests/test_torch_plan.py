@@ -32,8 +32,10 @@ def solvers(request):
     return sj_s, st_s
 
 
-def test_plan_identical(solvers):
-    ref, port = solvers
+def assert_plans_identical(ref, port):
+    """The port's ordering, tree, permuted matrix, symbolic factorization,
+    level plan and extend-add pairs equal the JAX solver's, array for
+    array (``tests/test_torch_ordering.py`` holds every ordering to it)."""
     np.testing.assert_array_equal(port.perm, ref.perm)
     np.testing.assert_array_equal(port.iperm, ref.iperm)
     for name in ("sep_begin", "sep_end", "parent", "lch", "rch"):
@@ -65,6 +67,10 @@ def test_plan_identical(solvers):
                 for x, y in zip(pp, pr):
                     np.testing.assert_array_equal(
                         x.idx.numpy(), br.host_arrays[y[2]])
+
+
+def test_plan_identical(solvers):
+    assert_plans_identical(*solvers)
 
 
 def test_assembly_indices_unique(solvers):
