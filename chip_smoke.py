@@ -24,7 +24,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    then K3 and K2 at every shape of the general-input phases (8-12) not
    checked before, bit-exact: without pivoting at spd64's and
    aniso24_nopivot's, with pivoting at nd64's, metis64's, mc64's and the
-   orderings' (events only, fewer repetitions);
+   orderings' (events only, fewer repetitions); then every K1, K2, K3
+   and K4 shape of the rank-structured phases (13-14) not checked before:
+   K1 on every (nf, p, u, child fronts) of their assembled buckets, on
+   BLR-compressed children densified as the solver densifies them, K3/K2
+   on their lossy and dense fronts, K2/K4 on hodlr100's BLR tiles;
 4. exact32: Poisson 32^3, f32 factor + f32 iterative refinement to 1e-5;
 5. exact64: Poisson 64^3, the same, plus peak device memory;
 6. f64: Poisson 32^3 in float64 (the kernels' double instantiation);
@@ -42,7 +46,14 @@ Phases, in order; any failure raises and the script exits non-zero:
     f64;
 12. df32: Poisson 32^3, f32 factor + double-float refinement (bench.py's
     df32 configuration);
-13. one JSON line {"kernels": [...]}, then the last line
+13. hodlr100: bench.py's hodlr100 configuration (ZFP_BLR_HODLR on
+    Poisson 100^3: sampled HSS fronts for separators >= 2048, BLR fronts
+    with compressed CBs >= 256, bf16 fronts below; f32, preconditioned
+    GMRES to 1e-6), the steady factor after update_matrix_values, peak
+    device memory, the device time by group;
+14. hss64, hodlr64: Poisson 64^3 with HSS and HODLR fronts built from the
+    dense F11 for separators >= 1024, f32, preconditioned GMRES to 1e-6;
+15. one JSON line {"kernels": [...]}, then the last line
     {"ok": true, "device": {...}}.
 
 The launch counters are set to 0 just before each solver phase factors
@@ -129,53 +140,108 @@ def k1_flat_index(idxn, posn, p, nfc, u, n_f):
     return flat, taken
 
 
-def check_k1(torch, pdev, rng):
+def k1_shapes(pdev):
+    """One (bucket, pair) of every K1 shape a factorization of the plan
+    launches: (nf, p, u, child fronts, compressed child), the child
+    fronts of a BLR-compressed child bucket being the parent's (the
+    solver densifies the blocks the parent reads), with the number of
+    pairs of that shape."""
+    seen = {}
+    for li, lvl in enumerate(pdev.levels):
+        for bi, bd in enumerate(lvl):
+            if bd.bp.hss_sample:
+                continue
+            for side in ("L", "R"):
+                for pr in getattr(bd, "pairs" + side):
+                    comp = bool(pdev.levels[li - 1][pr.bk].bp.cb_comp)
+                    nfc = bd.bp.nf if comp else \
+                        pdev.levels[li - 1][pr.bk].bp.nf
+                    key = (bd.bp.nf, bd.bp.p, pr.u, nfc, comp)
+                    if key not in seen:
+                        seen[key] = [(bd.bp.p, bd.bp.nf, li, bi, side, pr),
+                                     0]
+                    seen[key][1] += 1
+    return seen
+
+
+# K1 yardstick flat indices are built on the host up to this many values
+K1_FLAT_MAX = 1 << 26
+
+
+def check_k1(torch, pdev, rng, picks=None, full=True, counts=None):
+    """K1 against its plain version at ``picks`` (default: k1_pairs), on
+    random F and child blocks: bit-exact, timed by events, with the
+    index_add_ yardstick where its flat index has at most K1_FLAT_MAX
+    values.  A pair whose child bucket hands on BLR-compressed CBs takes
+    one dense block a parent front (``numeric._child_blocks``) and the
+    pair's ``loc`` map, as the solver launches it.  Without ``full`` the
+    times take fewer repetitions; ``counts``: pairs of each pick's
+    shape."""
     from strumpack_tpu_torch.ops.extend_add import extend_add, extend_add_plain
     out = []
-    for p, nf, li, bi, side, pr in k1_pairs(pdev):
+    reps = {} if full else dict(warmup=1, reps=3)
+    if picks is None:
+        picks = k1_pairs(pdev)
+    for n, (p, nf, li, bi, side, pr) in enumerate(picks):
         bd = pdev.levels[li][bi]
         cb = pdev.levels[li - 1][pr.bk].bp
-        u, nfc = pr.u, cb.nf
+        comp = bool(cb.cb_comp)
+        u = pr.u
+        nfc = nf if comp else cb.nf
+        idx = pr.loc if comp else pr.idx
         pos = getattr(bd, "pos" + side)
-        F = torch.from_numpy(
-            rng.standard_normal((nf, p, p), dtype=np.float32)).cuda()
-        C = torch.from_numpy(
-            rng.standard_normal((nfc, u, u), dtype=np.float32)).cuda()
-        Fk = extend_add(F.clone(), C, pr.idx, pos)
-        Fp = extend_add_plain(F.clone(), C, pr.idx, pos)
+        # drawn on the card: hodlr100's fronts reach 2 GB
+        gen = torch.Generator(device="cuda").manual_seed(
+            int(rng.integers(2 ** 31)))
+        F = torch.randn((nf, p, p), generator=gen, device="cuda")
+        C = torch.randn((nfc, u, u), generator=gen, device="cuda")
+        Fk = extend_add(F.clone(), C, idx, pos)
+        Fp = extend_add_plain(F.clone(), C, idx, pos)
         torch.cuda.synchronize()
         err = float((Fk - Fp).abs().max())
-        check(torch.equal(Fk, Fp), f"K1 bit-exact at p={p} u={u} nf={nf}")
+        check(torch.equal(Fk, Fp), f"K1 bit-exact at p={p} u={u} nf={nf} "
+              f"nfc={nfc} compressed child {comp}")
+        del Fp
         # bound: each touched element of F read and written once, its
         # addend read once, plus the maps of the fronts that have a child
         posn = pos.cpu().numpy()
-        idxn = pr.idx.cpu().numpy()
+        idxn = idx.cpu().numpy()
         nval = ((posn >= 0) & (idxn >= 0)[:, None]).sum(axis=1)
         nbytes = (3 * 4 * int((nval.astype(np.int64) ** 2).sum())
                   + 4 * p * int((idxn >= 0).sum()) + 4 * nf)
-        # yardstick: one index_add_ over flat indices built here, outside
-        # the timed call; exact, since the pos maps are injective
-        flat, taken = k1_flat_index(idxn, posn, p, nfc, u, F.numel())
-        flat = torch.from_numpy(flat).cuda()
-        Cz = C.clone()
-        Cz.view(-1)[torch.from_numpy(~taken).cuda()] = 0.0
-        Fl = F.clone()
-        Fl.view(-1).index_add_(0, flat, Cz.view(-1))
-        check(torch.equal(Fl, Fk), f"K1 index_add_ yardstick equals K1 at p={p}")
         Fw = F.clone()
-        ms = cuda_ms(lambda: extend_add(Fw, C, pr.idx, pos), torch)
+        ms = cuda_ms(lambda: extend_add(Fw, C, idx, pos), torch, **reps)
         Fw = F.clone()
-        plain = cuda_ms(lambda: extend_add_plain(Fw, C, pr.idx, pos), torch)
-        Fw = F.clone()
-        lib = cuda_ms(lambda: Fw.view(-1).index_add_(0, flat, Cz.view(-1)),
-                      torch)
+        plain = cuda_ms(lambda: extend_add_plain(Fw, C, idx, pos), torch,
+                        **reps)
+        lib = None
+        if nfc * u * u <= K1_FLAT_MAX:
+            # yardstick: one index_add_ over flat indices built here,
+            # outside the timed call; exact, since the pos maps are
+            # injective
+            flat, taken = k1_flat_index(idxn, posn, p, nfc, u, F.numel())
+            flat = torch.from_numpy(flat).cuda()
+            Cz = C.clone()
+            Cz.view(-1)[torch.from_numpy(~taken).cuda()] = 0.0
+            Fl = F.clone()
+            Fl.view(-1).index_add_(0, flat, Cz.view(-1))
+            check(torch.equal(Fl, Fk),
+                  f"K1 index_add_ yardstick equals K1 at p={p}")
+            Fw = F.clone()
+            lib = cuda_ms(lambda: Fw.view(-1).index_add_(0, flat,
+                                                         Cz.view(-1)),
+                          torch, **reps)
+            del flat, Cz, Fl
         rec = dict(p=p, u=u, nf=nf, nfc=nfc, level=li, bucket=bi, side=side,
-                   max_abs_err=err, ms=ms, plain_ms=plain,
-                   bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
-                   library_ms=lib)
-        print("K1", json.dumps(rec), flush=True)
+                   compressed_child=comp, max_abs_err=err, ms=ms,
+                   plain_ms=plain, bound_ms=nbytes / PEAK_BYTES * 1e3,
+                   bound_by="bytes", library_ms=lib)
+        if counts is not None:
+            rec["pairs"] = counts[n]
+        print("K1" if full else "K1-structured", json.dumps(rec),
+              flush=True)
         out.append(rec)
-        del F, C, Fk, Fp, Fw, Fl, Cz, flat
+        del F, C, Fk, Fw
     return out
 
 
@@ -744,18 +810,22 @@ def make_general(name):
     return A, s, time.perf_counter() - t0
 
 
-def general_checks(torch, rng, gen, k3_done, k2_done):
-    """K3 and K2 at every shape of the general-input phases ({name:
-    PlanDev}) the checks before did not cover ((nf, p, s, dtype, pivot)
-    sets, updated): pivot mode at nd64's and metis64's f32 shapes and at
-    mc64's and the orderings' f64 shapes, no-pivot mode at spd64's f32
-    shapes and at aniso24_nopivot's f64 shapes."""
+GENERAL_GROUPS = (("float32", True, ("nd64", "metis64")),
+                  ("float64", True, ("mc64",) + ORD_PHASES[:-1]),
+                  ("float32", False, ("spd64",)),
+                  ("float64", False, ("aniso24_nopivot",)))
+
+
+def general_checks(torch, rng, gen, k3_done, k2_done,
+                   groups=GENERAL_GROUPS):
+    """K3 and K2 at every shape of the phases ({name: PlanDev}) the checks
+    before did not cover ((nf, p, s, dtype, pivot) sets, updated), by
+    ``groups`` of (dtype, pivot, phase names): by default pivot mode at
+    nd64's and metis64's f32 shapes and at mc64's and the orderings' f64
+    shapes, no-pivot mode at spd64's f32 shapes and at aniso24_nopivot's
+    f64 shapes."""
     k3_new, k2_new = [], []
-    for dtype, pivot, names in (
-            ("float32", True, ("nd64", "metis64")),
-            ("float64", True, ("mc64",) + ORD_PHASES[:-1]),
-            ("float32", False, ("spd64",)),
-            ("float64", False, ("aniso24_nopivot",))):
+    for dtype, pivot, names in groups:
         plans = {n: gen[n] for n in names}
         shapes, _ = k3_shapes(plans, dtype)
         for (nf, p, s), n in sorted(shapes.items()):
@@ -775,6 +845,87 @@ def general_checks(torch, rng, gen, k3_done, k2_done):
     return k3_new, k2_new
 
 
+STRUCT_PHASES = ("hodlr100", "hss64", "hodlr64")
+
+
+def make_structured(name):
+    """(A, reordered solver, reorder seconds) of a rank-structured phase.
+    hodlr100 is bench.py's hodlr100 configuration exactly
+    (bench.py:252-300); hss64 and hodlr64 build HSS and HODLR fronts from
+    the dense F11 (with hss.sampling on, hodlr100's large fronts are
+    sampled instead), GMRES bounded at hodlr100's 200 iterations."""
+    import strumpack_tpu_torch as st
+    from strumpack_tpu_torch.sparse.gen import poisson3d
+    CT = st.CompressionType
+    base = dict(factor_dtype="float32", refine_dtype="float32",
+                rel_tol=1e-6, krylov_solver=st.KrylovSolver.PREC_GMRES)
+    if name == "hodlr100":
+        nx = 100
+        opts = st.SPOptions(compression=CT.ZFP_BLR_HODLR,
+                            compression_min_sep_size=256, maxit=200, **base)
+        opts.hss.sampling = True
+        opts.hodlr_min_sep_size = 2048
+        opts.blr.max_rank = 24
+        opts.blr.rel_tol = 1e-4
+        opts.blr.cb_compression = True
+        opts.blr.cb_rank_cap = 12
+        opts.hss.leaf_size = 256
+        opts.hss.max_rank = 256
+        opts.hss.rel_tol = 1e-4
+    else:
+        nx = 64
+        opts = st.SPOptions(
+            compression=CT.HSS if name == "hss64" else CT.HODLR,
+            compression_min_sep_size=1024, maxit=200, **base)
+        opts.hss.leaf_size = 128
+        opts.hss.max_rank = 128
+        opts.hss.rel_tol = 1e-4
+    A = poisson3d(nx)
+    s = st.SparseSolver(opts)
+    s.set_csr_matrix(A)
+    t0 = time.perf_counter()
+    check(s.reorder(nx, nx, nx) == st.ReturnCode.SUCCESS, f"{name} reorder")
+    return A, s, time.perf_counter() - t0
+
+
+def structured_checks(torch, rng, plans, k3_done, k2_done, k4_done):
+    """Every K1, K3, K2 and K4 shape of the rank-structured phases
+    ({name: PlanDev}) not checked before: K1 at each shape of every
+    assembled bucket's pairs (once across the phases), K3/K2 at their
+    dense and lossy fronts (f32, pivoting), K2/K4 at hodlr100's BLR tile
+    LUs."""
+    from strumpack_tpu_torch.ops import panel_lu as PP
+    k1, k1_done = [], set()
+    for name, pdev in plans.items():
+        shapes = k1_shapes(pdev)
+        print(f"{name}: {len(shapes)} K1 shapes, "
+              f"{sum(n for _, n in shapes.values())} pairs", flush=True)
+        new = sorted(k for k in shapes if k not in k1_done)
+        k1_done.update(new)
+        picks = [shapes[k][0] for k in new]
+        counts = [shapes[k][1] for k in new]
+        k1 += check_k1(torch, rng=rng, pdev=pdev, picks=picks, full=False,
+                       counts=counts)
+        torch.cuda.empty_cache()
+    k3, k2 = general_checks(torch, rng, plans, k3_done, k2_done,
+                            groups=(("float32", True, tuple(plans)),))
+    k4 = []
+    for name, pdev in plans.items():
+        k2t, k4t = blr_shapes(pdev, torch.float32)
+        for (nf, p, s), n in sorted(k2t.items()):
+            if (nf, p, s, "float32", True) not in k2_done:
+                k2_done.add((nf, p, s, "float32", True))
+                k2.append(check_k2(torch, rng, nf, p, s, "float32",
+                                   launches=n, full=False))
+        for (nf, p, w, row0), n in sorted(k4t.items()):
+            if (nf, p, w, row0) not in k4_done:
+                k4_done.add((nf, p, w, row0))
+                k4.append(check_k4(torch, rng, nf, p, w, row0, "float32",
+                                   PP.design(p, w, 4, row0), launches=n))
+        torch.cuda.empty_cache()
+    return k1, k3, k2, k4
+
+
 def plan_launches(pdev, dtype):
     """Kernel wrapper -> the plan's launches of one factorization in
     ``dtype``."""
@@ -788,14 +939,18 @@ def run_solver(torch, name, A, s, t_reorder, seed, res_tol=None,
                scaled_tol=None, memory=False, profile=False,
                launched=("extend_add", "front_lu_cross"), peak_check=True,
                k4_design=None, steady=3, nopivot=False, x0_check=False,
-               spd=False):
+               spd=False, refresh=False):
     """Factor and solve once with the launch counters zeroed, check the
     counts against the plan and the result against the limits, then time
     ``steady`` factor + solve pairs.  ``launched``: the kernels this path
     must have launched at least once; ``k4_design``: the K4 design every
     K4 launch must have taken; ``nopivot``: every K3 and K2 launch without
     pivoting; ``x0_check``: a second solve from the first solution takes
-    no more iterations; ``spd``: the inertia is (n, 0, 0) and exact."""
+    no more iterations; ``spd``: the inertia is (n, 0, 0) and exact;
+    ``refresh``: each steady factorization follows update_matrix_values
+    (the same values), as a new matrix of the same pattern would;
+    ``profile`` "factor" profiles the factorization alone
+    (``device_groups``)."""
     import strumpack_tpu_torch as st
     from strumpack_tpu_torch.frontal import numeric
     plan, pdev = s.plan, s.pdev
@@ -860,6 +1015,8 @@ def run_solver(torch, name, A, s, t_reorder, seed, res_tol=None,
     # steady state: the same plan factored and solved again
     steady_times, steady_solve = [], []
     for _ in range(steady):
+        if refresh:
+            s.update_matrix_values(A)
         s._factored = False
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -885,7 +1042,8 @@ def run_solver(torch, name, A, s, t_reorder, seed, res_tol=None,
         rec["matching_s"] = s.times["matching"]
     if s.opts.compression != st.CompressionType.NONE:
         itemsize = np.dtype(s.opts.factor_dtype).itemsize
-        rec.update(max_rank=s.fac.max_rank(),
+        rec.update(kinds=pdev.kinds(), max_rank=s.fac.max_rank(),
+                   structured_max_rank=s.fac.structured_max_rank(),
                    effective_factor_flops=s.fac.effective_factor_flops(),
                    factor_bytes_effective=s.fac.factor_memory(),
                    factor_bytes_allocated=s.fac.factor_memory(False),
@@ -901,7 +1059,12 @@ def run_solver(torch, name, A, s, t_reorder, seed, res_tol=None,
             check(peak <= rec["factor_peak_bytes_model"],
                   f"{name}: peak {peak} bytes within the factor_peak_bytes "
                   "model")
-    if profile:
+    if profile == "factor":
+        # the rank-structured phases: the factorization alone, from the
+        # profiler's raw events
+        s._factored = False
+        rec["profile"] = device_groups(torch, s.factor)
+    elif profile:
         rec["profile"] = profile_factor(torch, s, b)
     print(name, json.dumps(rec), flush=True)
     return rec
@@ -920,6 +1083,13 @@ KERNEL_GROUPS = (
     ("GEMM (Schur, solve)", ("gemm", "xmma", "cutlass")),
 )
 PROFILER_OVERHEAD = ("Activity Buffer Request", "Buffer Flush")
+# profiler ranges of the port whose kernels are summed apart (a kernel
+# counts in every range around it): RRQR tile compression, CB
+# compression, the HSS ULV and HODLR SMW factorizations, and the bucket
+# steps by front kind (numeric._kind)
+RANGE_GROUPS = ("rrqr", "cb_compress", "hss_ulv", "hodlr_smw",
+                "front:hss_sample", "front:hss", "front:hodlr", "front:blr",
+                "front:lossy", "front:dense", "front:empty")
 
 
 def _inside(ev, name):
@@ -957,6 +1127,9 @@ def profile_factor(torch, s, b):
             # the range around ops/rrqr.rrqr: its device row is the span
             # of the device timeline inside the range, idle gaps included
             span_ms = max(span_ms, dev / 1e3)
+        elif ev.key in RANGE_GROUPS:
+            # the other port ranges' rows are spans too, not kernels
+            continue
         elif (dev > 0 and ev.device_type == DeviceType.CUDA
                 and ev.key not in PROFILER_OVERHEAD):
             rows.append((dev / 1e3, ev.count, ev.key))
@@ -989,6 +1162,80 @@ def profile_factor(torch, s, b):
         print(f"profile: {ms:9.2f} ms {count:6d}x {key[:90]}")
     return dict(wall_ms=wall * 1e3, kernel_ms=busy, groups=groups,
                 rrqr_ms=rrqr_ms, rrqr_span_ms=span_ms)
+
+
+# the rank-structured phases add the dense factorizations of the
+# structured fronts to the groups
+STRUCT_KERNEL_GROUPS = KERNEL_GROUPS + (
+    ("library SVD", ("gesvd", "svd_")),
+    ("library QR", ("geqr", "larf", "orgqr", "ormqr")),
+)
+
+
+def device_groups(torch, fn):
+    """Device time of one call of ``fn`` by kernel group and by port range
+    (RANGE_GROUPS), read from the profiler's raw events: hodlr100's factor
+    holds more than half a million kernels, and the profiler's event tree
+    of its factor and solve took minutes to read on the card host.  A
+    kernel counts in a range when the op that launched it ran inside the
+    range; the ranges' own device rows are left out."""
+    import bisect
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    names = set(RANGE_GROUPS) | {"rrqr"}
+    spans = {n: [] for n in names}
+    launched = {}
+    kernels = []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA:
+            if name not in names and name not in PROFILER_OVERHEAD:
+                kernels.append((name, e.duration_ns(),
+                                e.linked_correlation_id()))
+        elif name in names:
+            spans[name].append((e.start_ns(), e.end_ns()))
+        elif e.linked_correlation_id() == 0 and e.correlation_id():
+            launched[e.correlation_id()] = e.start_ns()
+    starts = {}
+    for n in names:
+        spans[n].sort()
+        starts[n] = [a for a, _ in spans[n]]
+    groups = {g: 0.0 for g, _ in STRUCT_KERNEL_GROUPS}
+    other = "other (assembly, gathers, copies, elementwise)"
+    groups[other] = 0.0
+    ranges = dict.fromkeys(sorted(names), 0.0)
+    busy = 0.0
+    for name, ns, corr in kernels:
+        ms = ns / 1e6
+        busy += ms
+        g = next((g for g, pats in STRUCT_KERNEL_GROUPS
+                  if any(pt in name for pt in pats)), other)
+        groups[g] += ms
+        ts = launched.get(corr)
+        if ts is None:
+            continue
+        for n in names:
+            i = bisect.bisect_right(starts[n], ts) - 1
+            if i >= 0 and ts < spans[n][i][1]:
+                ranges[n] += ms
+    print(f"profile: raw events read in {time.perf_counter() - t0:.1f} s, "
+          f"{len(kernels)} kernels")
+    print(f"profile: wall {wall * 1e3:.1f} ms, kernels {busy:.1f} ms "
+          f"({100 * busy / (wall * 1e3):.1f}% of wall)")
+    for name, ms in list(groups.items()) + [("range " + k, v)
+                                            for k, v in ranges.items()]:
+        print(f"profile: {ms:9.2f} ms {100 * ms / max(busy, 1e-9):5.1f}%  "
+              f"{name}")
+    return dict(wall_ms=wall * 1e3, kernel_ms=busy, groups=groups,
+                ranges=ranges, kernels=len(kernels))
 
 
 def main():
@@ -1104,6 +1351,24 @@ def main():
         torch, rng, {n: g[1].pdev for n, g in general.items()},
         {(r["nf"], r["p"], r["s"], r["dtype"], True) for r in k3},
         {(r["nf"], r["p"], r["s"], r["dtype"], r["pivot"]) for r in k2})
+    # every K1-K4 shape of the rank-structured phases not checked above
+    struct = {}
+    for name in STRUCT_PHASES:
+        struct[name] = make_structured(name)
+        A_, s_, t_ = struct[name]
+        print(f"reorder {name}: {t_:.2f} s, n {A_.n}, {s_.plan.n_levels} "
+              f"levels, buckets {json.dumps(s_.pdev.kinds())}, "
+              f"factor nnz {s_.plan.factor_nnz}", flush=True)
+    k3_done = ({(r["nf"], r["p"], r["s"], r["dtype"], True) for r in k3}
+               | {(r["nf"], r["p"], r["s"], r["dtype"], r["pivot"])
+                  for r in k3_gen})
+    k2_done = {(r["nf"], r["p"], r["s"], r["dtype"], r["pivot"])
+               for r in k2 + k2_gen}
+    k4_done = {(r["nf"], r["p"], r["w"], r["row0"]) for r in k4
+               if r["dtype"] == "float32"}
+    k1_st, k3_st, k2_st, k4_st = structured_checks(
+        torch, rng, {n: g[1].pdev for n, g in struct.items()}, k3_done,
+        k2_done, k4_done)
 
     phase("4 exact32")
     exact32_run = run_solver(torch, "exact32", A32, s32, t_reorder32,
@@ -1180,27 +1445,63 @@ def main():
     phase("12 df32")
     general_run("df32", scaled_tol=1e-10)
 
-    phase("13 summary")
+    def struct_run(name, **kw):
+        A, s, t = struct.pop(name)
+        torch.cuda.empty_cache()
+        # bench.py's gate (ERROR_TOL 1e2 times rel_tol), its right-hand
+        # side from default_rng(0)
+        rec = run_solver(torch, name, A, s, t, seed=0, memory=True,
+                         scaled_tol=1e2 * s.opts.rel_tol, steady=1,
+                         refresh=True, profile="factor", **kw)
+        print(f"{name}: peak {rec['peak_bytes']} bytes against the model's "
+              f"{rec['factor_peak_bytes_model']}; factor bytes "
+              f"{rec['factor_bytes_effective']} against dense "
+              f"{rec['dense_factor_bytes']}", flush=True)
+        runs[name] = rec
+        del A, s
+        torch.cuda.empty_cache()
+
+    phase("13 hodlr100")
+    struct_run("hodlr100", launched=tuple(_wrappers()))
+
+    phase("14 hss64, hodlr64")
+    for name in ("hss64", "hodlr64"):
+        struct_run(name)
+
+    phase("15 summary")
     print("K4-blocked", json.dumps(blocked))
     print("K3-general", json.dumps(k3_gen))
     print("K2-general", json.dumps(k2_gen))
+    print("K1-structured", json.dumps(k1_st))
+    print("K3-structured", json.dumps(k3_st))
+    print("K2-structured", json.dumps(k2_st))
+    print("K4-structured", json.dumps(k4_st))
     print("ptxas", json.dumps(ptxas))
 
-    def entry(name, src, replaces, run, key, recs, general=()):
+    def sums(recs):
+        out = dict(checks=len(recs), nopivot_checks=sum(
+            not r.get("pivot", True) for r in recs))
+        if recs:
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                out[k] = sum(r[k] for r in recs if r[k] is not None)
+            out["library_missing"] = sum(r["library_ms"] is None
+                                         for r in recs)
+        return out
+
+    def entry(name, src, replaces, run, key, recs, general=(),
+              structured=()):
         """One kernel's line: launches from ``run`` (and by phase), the
         sums over its main checks ``recs``, and its checks at the
-        general-input phases' shapes summed apart."""
-        gen = dict(checks=len(general), nopivot_checks=sum(
-            not r["pivot"] for r in general))
-        if general:
-            for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
-                gen[k] = sum(r[k] for r in general)
+        general-input and the rank-structured phases' shapes summed
+        apart (the library yardstick where it was timed)."""
+        gen = sums(general)
         return dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=run["launches"][key], launches_from=run["phase"],
             launches_by_phase={n: r["launches"][key]
                                for n, r in runs.items()},
-            max_abs_err=max(r["max_abs_err"] for r in (*recs, *general)),
+            max_abs_err=max(r["max_abs_err"]
+                            for r in (*recs, *general, *structured)),
             ms=sum(r["ms"] for r in recs),
             plain_ms=sum(r["plain_ms"] for r in recs),
             bound_ms=sum(r["bound_ms"] for r in recs),
@@ -1208,7 +1509,8 @@ def main():
                       else "operations"),
             library_ms=(None if any(r["library_ms"] is None for r in recs)
                         else sum(r["library_ms"] for r in recs)),
-            general_shapes=gen, shapes=recs)
+            general_shapes=gen, structured_shapes=sums(structured),
+            shapes=recs)
 
     def k3_entry(e):
         # the kernel alone beside the wrapper + Schur GEMM of ``ms``
@@ -1220,16 +1522,16 @@ def main():
     kernels = [
         entry("extend_add", "strumpack_tpu_torch/csrc/extend_add.cu",
               "strumpack_tpu/ops/pallas_extadd.py:204", main_run,
-              "extend_add", k1),
+              "extend_add", k1, structured=k1_st),
         k3_entry(entry("front_lu_cross", "strumpack_tpu_torch/csrc/front_lu.cu",
                        "strumpack_tpu/ops/pallas_lu.py:286", main_run,
-                       "front_lu_cross", k3, k3_gen)),
+                       "front_lu_cross", k3, k3_gen, k3_st)),
         entry("small_lu", "strumpack_tpu_torch/csrc/small_lu.cu",
               "strumpack_tpu/ops/pallas_lu.py:102", blr_run, "small_lu", k2,
-              k2_gen),
+              k2_gen, k2_st),
         entry("panel_lu", "strumpack_tpu_torch/csrc/panel_lu.cu",
               "strumpack_tpu/ops/pallas_panel_lu.py:110", blr_run,
-              "panel_lu", k4),
+              "panel_lu", k4, structured=k4_st),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -10,7 +10,8 @@ operations.
 * the diagonal tile LU goes through ``ops/panel_lu.batched_lu``: kernel K2
   for tiles up to 64, the blocked LU over kernel K4 above;
 * tile compression is ``ops/rrqr.rrqr`` (tolerance-stopped pivoted QR,
-  the reference's default) or a truncated SVD; ACA/BACA are not ported;
+  the reference's default), adaptive cross approximation
+  (``ops/aca.aca``/``baca``) or a truncated SVD;
 * triangular solves, tile GEMMs and einsums are library calls
   (``torch.linalg.solve_triangular``, ``torch.einsum``), as the JAX
   package leaves them to XLA;
@@ -47,9 +48,12 @@ def _compress_tiles(T, tol, r, algo="rrqr"):
     if algo == "rrqr":
         from ..ops.rrqr import rrqr
         return rrqr(T, tol, r)
-    if algo in ("aca", "baca"):
-        raise NotImplementedError(f"BLR low-rank algorithm {algo!r} is not "
-                                  "ported yet (rrqr and svd are)")
+    if algo == "aca":
+        from ..ops.aca import aca
+        return aca(T, tol, r)
+    if algo == "baca":
+        from ..ops.aca import baca
+        return baca(T, tol, r)
     Uf, S, Vh = torch.linalg.svd(T, full_matrices=False)
     s0 = S[..., :1]
     keep = S > tol * torch.clamp(s0, min=torch.finfo(S.dtype).tiny)

@@ -16,13 +16,13 @@ uniform shapes.
   CSR values, so ``update_matrix_values`` reuses the entire plan
   (the reference's structure-reuse feature, StrumpackSparseSolver.hpp:196).
 
-This is the dense-front and BLR part of ``strumpack_tpu/frontal/plan.py``:
-the plan arrays are identical to that module's for ``CompressionType.NONE``
-and ``CompressionType.BLR`` (tile size, rank cap and admissibility chosen
-per bucket, the FrontFactory role).  The other compressed front types
-(HSS, HODLR, HODBF, lossy), BLR-compressed contribution blocks,
-nf-chunked buckets and the distributed plan build are not part of this
-package yet.
+The counterpart of ``strumpack_tpu/frontal/plan.py``: the plan arrays
+and front-type flags are identical to that module's for every compression
+the port runs (dense, BLR with or without compressed contribution blocks,
+HSS built dense or by sampling, HODLR, lossy and lossless, and the
+BLR_HODLR/ZFP_BLR_HODLR composites), chosen per bucket as FrontFactory
+does.  HODBF (butterfly) fronts, nf-chunked buckets (the memory planner)
+and the distributed plan build are not part of this package yet.
 """
 from __future__ import annotations
 
@@ -39,6 +39,26 @@ from ..sparse.separator_tree import SeparatorTree
 _PAD_SCHEDULE = [0, 4, 8, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512,
                  768, 1024, 1536, 2048, 3072, 4096, 6144, 8192, 12288, 16384,
                  24576, 32768]
+
+
+def _build_ell(r, c, vidx_in, nrows, nnz_pad):
+    """Pack COO (r, c, vidx) into padded ELL [nrows, kmax]: (cols, vidx)
+    with padding slots pointing at the zero value (vals_ext[nnz_pad])."""
+    if len(r) == 0:
+        return (np.zeros((nrows, 1), np.int32),
+                np.full((nrows, 1), nnz_pad, np.int64))
+    order = np.lexsort((c, r))
+    r, c, v = r[order], c[order], vidx_in[order]
+    counts = np.bincount(r, minlength=nrows)
+    kmax = max(int(counts.max()), 1)
+    off = np.zeros(nrows + 1, np.int64)
+    np.cumsum(counts, out=off[1:])
+    k = np.arange(len(r)) - off[r]
+    cols = np.zeros((nrows, kmax), np.int32)
+    vidx = np.full((nrows, kmax), nnz_pad, np.int64)
+    cols[r, k] = c
+    vidx[r, k] = v
+    return cols, vidx
 
 
 def pad_size(x: int) -> int:
@@ -95,6 +115,19 @@ class BucketPlan:
     adm_band: int = 0            # 0 = weak admissibility, 1 = strong
     blr_variant: str = "rl"      # "rl" eager / "ll" LUAR-accumulated
     lr_algo: str = "rrqr"        # tile compressor (LowRankAlgorithm role)
+    cb_comp: int = 0             # CB BLR tile size, 0 = dense CB (F22blr_)
+    cb_rank: int = 0             # compressed-CB rank cap (0 = tile/4)
+    lossy: int = 0               # 0 = off, 4/8/16 = factor storage bits
+    hss: bool = False            # HSS front built from the dense F11
+    hodlr: bool = False          # HODLR front built from the dense F11
+    hss_leaf: int = 0
+    hss_rank: int = 0
+    # sampling-constructed HSS front (FrontHSS::random_sampling role,
+    # FrontHSS.cpp:241): never assembles the dense front; its closures
+    # read the sparse block (ELL) and the children's CBs
+    hss_sample: bool = False
+    samp: dict = None            # per-front ELL arrays of the sparse block
+    samp_meta: dict = None       # {"p": padded front width}
 
     @property
     def nf(self) -> int:
@@ -107,6 +140,16 @@ class BucketPlan:
     @property
     def p(self) -> int:
         return self.s_pad + self.u_pad
+
+    @property
+    def structured(self) -> bool:
+        """HSS (dense-built or sampled) or HODLR fronts."""
+        return self.hss or self.hodlr or self.hss_sample
+
+    @property
+    def compressed(self) -> bool:
+        """Rank-structured fronts: BLR, HSS or HODLR."""
+        return self.blr or self.structured
 
 
 @dataclass
@@ -129,35 +172,103 @@ class LevelPlan:
         return len(self.levels)
 
 
+# the message of every front type that comes with the next slice
+HODBF_LATER = ("HODBF (butterfly) fronts are not ported yet: they come "
+               "with the complex slice (helmholtz32)")
+
+
 def _assign_bucket_compression(bp: BucketPlan, compression) -> None:
     """Per-bucket front-type selection (FrontFactory role,
-    FrontFactory.hpp:84-133) for ``CompressionType.BLR``: buckets whose
-    padded separator reaches ``compression_min_sep_size`` become BLR
-    fronts with a tile size, a rank cap, an admissibility, an update
-    schedule and a tile compressor."""
+    FrontFactory.hpp:84-133; ``strumpack_tpu/frontal/plan.py:216-318``):
+    resolves the configured CompressionType and its size thresholds into
+    the bucket's blr/hss/hss_sample/hodlr/lossy flags, with the BLR tile,
+    rank cap, admissibility, schedule and compressor, the HSS/HODLR leaf
+    and rank, and the compressed-CB tile and rank."""
     if compression is None:
         return
     from ..options import CompressionType as CT
     comp = compression.compression
-    if comp == CT.NONE:
-        return
-    if comp != CT.BLR:
-        raise NotImplementedError(
-            f"compression {comp.name}: only dense and BLR fronts are ported")
-    if getattr(compression.blr, "cb_compression", False):
-        raise NotImplementedError("BLR-compressed contribution blocks "
-                                  "(cb_compression) are not ported yet")
     sp, up = bp.s_pad, bp.u_pad
-    if sp < compression.compression_min_sep_size:
-        return
-    from .blr import choose_tile
-    bp.blr = True
-    bp.tile = choose_tile(sp, up, compression.blr.leaf_size)
-    bp.max_rank = max(4, min(compression.blr.max_rank, bp.tile // 2))
-    if getattr(compression.blr, "admissibility", "weak") == "strong":
-        bp.adm_band = 1
-    bp.blr_variant = getattr(compression.blr, "factor_algorithm", "rl")
-    bp.lr_algo = getattr(compression.blr, "low_rank_algorithm", "rrqr")
+    min_sep = compression.compression_min_sep_size
+    # composite schemes resolve to a type per bucket (FrontFactory.hpp:
+    # 92-124 + StrumpackOptions.hpp:1023-1040 per-level thresholds)
+    eff = None
+    if comp in (CT.BLR_HODLR, CT.ZFP_BLR_HODLR):
+        if sp >= compression.hodlr_min_sep_size:
+            # with hss.sampling the composite's top fronts are sampled HSS
+            eff = CT.HSS if compression.hss.sampling else CT.HODLR
+        elif sp >= min_sep:
+            eff = CT.BLR
+        elif (comp == CT.ZFP_BLR_HODLR
+              and sp >= compression.lossy_min_sep_size):
+            eff = CT.LOSSY
+    elif comp not in (CT.NONE, CT.LOSSLESS) and sp >= min_sep:
+        # LOSSLESS (the ZFP reversible role) stores exact factors
+        eff = comp
+    cb_comp = (compression.blr.cb_compression and up >= 128
+               and up % 64 == 0)
+    if eff == CT.BLR:
+        from .blr import choose_tile
+        bp.blr = True
+        bp.tile = choose_tile(sp, up, compression.blr.leaf_size)
+        bp.max_rank = max(4, min(compression.blr.max_rank, bp.tile // 2))
+        if compression.blr.admissibility == "strong":
+            bp.adm_band = 1
+        bp.blr_variant = compression.blr.factor_algorithm
+        bp.lr_algo = compression.blr.low_rank_algorithm
+    elif eff == CT.LOSSY:
+        bp.lossy = compression.lossy_precision
+    elif eff in (CT.HSS, CT.HODLR, CT.HODBF):
+        if eff == CT.HSS:
+            if compression.hss.sampling:
+                bp.hss_sample = True
+            else:
+                bp.hss = True
+        elif eff == CT.HODBF or compression.hodlr_butterfly_levels > 0:
+            raise NotImplementedError(HODBF_LATER)
+        else:
+            bp.hodlr = True
+        bp.hss_leaf = min(compression.hss.leaf_size, max(sp // 4, 16))
+        bp.hss_rank = min(compression.hss.max_rank, bp.hss_leaf)
+    if cb_comp and bp.compressed:
+        # memory-efficient variant: hand the parent a BLR-compressed CB
+        # (FrontBLR F22blr_ role), 128-wide tiles where they divide u
+        bp.cb_comp = 128 if up % 128 == 0 else 64
+        bp.cb_rank = compression.blr.cb_rank_cap
+
+
+def _sample_ell(bp, bidx, rr, cc, vv, nnz):
+    """A sampled bucket's sparse block as per-front ELL arrays (rows and
+    columns in padded front slots 0..p, F11's identity padding included,
+    value indices into vals_ext so update_matrix_values reuses the plan),
+    row-major and transposed; the bucket assembles nothing dense
+    (``strumpack_tpu/frontal/plan.py:543-592``)."""
+    p = bp.p
+    per = []
+    for bi in range(bp.nf):
+        fm = bidx == bi
+        padi = np.arange(int(bp.ds[bi]), bp.s_pad, dtype=np.int64)
+        r1 = np.concatenate([rr[fm], padi])
+        c1 = np.concatenate([cc[fm], padi])
+        v1 = np.concatenate([vv[fm], np.full(len(padi), nnz + 1,
+                                             dtype=np.int64)])
+        per.append((_build_ell(r1, c1, v1, p, nnz),
+                    _build_ell(c1, r1, v1, p, nnz)))
+
+    def stack(side):
+        w = max(e[side][0].shape[1] for e in per)
+        cols = [np.pad(e[side][0], ((0, 0), (0, w - e[side][0].shape[1])))
+                for e in per]
+        vidx = [np.pad(e[side][1], ((0, 0), (0, w - e[side][1].shape[1])),
+                       constant_values=nnz) for e in per]
+        return np.stack(cols), np.stack(vidx)
+    (c, v), (cT, vT) = stack(0), stack(1)
+    bp.samp = dict(samp_ell_cols=c, samp_ell_vidx=v, samp_ellT_cols=cT,
+                   samp_ellT_vidx=vT)
+    bp.samp_meta = dict(p=p)
+    z32 = np.zeros(0, dtype=np.int32)
+    bp.asm_bidx = bp.asm_r = bp.asm_c = z32
+    bp.asm_vidx = np.zeros(0, dtype=np.int64)
 
 
 def build_plan(Ap: CSRMatrix, tree: SeparatorTree,
@@ -315,29 +426,36 @@ def build_plan(Ap: CSRMatrix, tree: SeparatorTree,
             bp.asm_c = np.concatenate([cpos[m], pad_i]).astype(np.int32)
             bp.asm_vidx = np.concatenate(
                 [vidx, np.full(len(pad_b), nnz + 1)]).astype(np.int64)
+            if bp.hss_sample:
+                _sample_ell(bp, batch_of[eo[m]], rpos[m], cpos[m], vidx,
+                            nnz)
 
         plan.levels.append(level_buckets)
         plan.cb_sizes.append(cb_total)
         plan.cbv_sizes.append(cbv_total)
 
     # ---- generous initial rank caps (skip the adaptive restart) ---------
-    # Start BLR buckets at the caps the adaptive-rank restart would
-    # converge to (the tile size, never above an explicit user cap) when
-    # that uncapped storage fits in a quarter of the device memory, as the
-    # JAX package does (plan.py:607-636); saturation then cannot trigger.
-    if any(bp.blr for lvl in plan.levels for bp in lvl):
+    # Start compressed buckets at the caps the adaptive-rank restart would
+    # converge to (BLR: the tile size, HSS/HODLR: the leaf size, never
+    # above an explicit user cap) when that storage fits in a quarter of
+    # the device memory, as the JAX package does (plan.py:607-636);
+    # saturation then cannot trigger.
+    if any(bp.compressed for lvl in plan.levels for bp in lvl):
         from .numeric import hbm_budget_bytes, static_factor_bytes
-        saved = [bp.max_rank for lvl in plan.levels for bp in lvl]
+        saved = [(bp.max_rank, bp.hss_rank)
+                 for lvl in plan.levels for bp in lvl]
         for lvl in plan.levels:
             for bp in lvl:
                 if bp.blr:
                     bp.max_rank = min(bp.tile, compression.blr.max_rank)
+                if bp.structured:
+                    bp.hss_rank = min(bp.hss_leaf, compression.hss.max_rank)
         budget = hbm_budget_bytes(None) if hbm_bytes is None else hbm_bytes
         if static_factor_bytes(plan) > 0.25 * budget:
             it = iter(saved)
             for lvl in plan.levels:
                 for bp in lvl:
-                    bp.max_rank = next(it)
+                    bp.max_rank, bp.hss_rank = next(it)
 
     # ---- stats ----------------------------------------------------------
     from ..sparse.symbolic import factor_flops, factor_nonzeros

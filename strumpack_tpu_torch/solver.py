@@ -11,8 +11,10 @@ multifrontal paths:
               BFS or multilevel nested dissection, spectral, natural, RCM,
               AMD, MMD, MLF; separator reordering under compression),
               symbolic factorization, level/bucket plan
-  factor():   device — level-batched numeric factorization (dense or BLR
-              fronts), with the adaptive-rank restart under compression
+  factor():   device — level-batched numeric factorization (dense, lossy,
+              BLR, HSS, sampled HSS or HODLR fronts, BLR-compressed
+              contribution blocks), with the adaptive-rank restart under
+              compression
   solve():    device — multifrontal solve, directly, inside iterative
               refinement (in the refine dtype, or double-float for
               ``float32x2``) or as the preconditioner of GMRES/BiCGStab
@@ -35,6 +37,13 @@ from .options import (CompressionType, KrylovSolver, MatchingJob,
                       ReorderingStrategy, SPOptions)
 from .sparse.csr import CSRMatrix
 from .utils.params import ReturnCode, counters
+
+# Plans of at most this many buckets solve several right-hand sides in one
+# Krylov stream and report the largest iteration count; larger plans solve
+# column by column and report the sum, as the JAX package does
+# (strumpack_tpu/solver.py:584-645, SPLIT_SOLVE_BUCKETS at
+# strumpack_tpu/frontal/numeric.py:1812)
+SPLIT_SOLVE_BUCKETS = 40
 
 
 def resolve_device(device=None) -> torch.device:
@@ -133,23 +142,22 @@ class SparseSolver:
 
     # -- input -------------------------------------------------------------
     def _check_supported(self):
-        opts = self.opts
-        unsupported = [
-            (opts.compression not in (CompressionType.NONE,
-                                      CompressionType.BLR),
-             f"compression {opts.compression.name}"),
-            (opts.blr.cb_compression and
-             opts.compression == CompressionType.BLR,
-             "BLR-compressed contribution blocks")]
-        for bad, what in unsupported:
-            if bad:
-                raise NotImplementedError(f"{what} is not ported yet")
+        """HODBF (butterfly) fronts come with the next slice of the port."""
+        from .frontal.plan import HODBF_LATER
+        C = CompressionType
+        if (self.opts.compression == C.HODBF
+                or (self.opts.hodlr_butterfly_levels > 0
+                    and self.opts.compression in (C.HODLR, C.BLR_HODLR,
+                                                  C.ZFP_BLR_HODLR))):
+            raise NotImplementedError(HODBF_LATER)
 
     def set_csr_matrix(self, A) -> None:
         if not isinstance(A, CSRMatrix):
             A = CSRMatrix.from_scipy(A)
         if np.iscomplexobj(A.data):
-            raise NotImplementedError("complex matrices are not ported yet")
+            raise NotImplementedError(
+                "complex matrices are not ported yet: they come with the "
+                "next slice (complex and HODBF fronts, helmholtz32)")
         self.A = A
         self._reordered = False
         self._factored = False
@@ -310,7 +318,8 @@ class SparseSolver:
             return numeric.factorize(self.pdev, self.Ap.data, thresh=thresh,
                                      dtype=fdt, blr_tol=opts.blr.rel_tol,
                                      pivoting=opts.pivoting,
-                                     spd=opts.positive_definite)
+                                     spd=opts.positive_definite,
+                                     hss_tol=opts.hss.rel_tol)
 
         self.factor_passes = 0
         self.fac = run_factor()
@@ -335,6 +344,10 @@ class SparseSolver:
                     bp = self.plan.levels[li][bi]
                     if bp.blr and bp.max_rank < bp.tile:
                         bp.max_rank = min(bp.tile, bp.max_rank * 2)
+                        grew = True
+                    if (bp.structured
+                            and 0 < bp.hss_rank < bp.hss_leaf):
+                        bp.hss_rank = min(bp.hss_leaf, bp.hss_rank * 2)
                         grew = True
                 if not grew:
                     break
@@ -363,7 +376,9 @@ class SparseSolver:
                 dense = self.plan.factor_nnz * itemsize
                 print(f"#   - factor memory/nonzeros = "
                       f"{100.0 * fmem / max(dense, 1):.1f} %")
-                print(f"#   - maximum rank = {self.fac.max_rank()}")
+                print(f"#   - maximum rank = {self.fac.max_rank()}"
+                      f" (BLR), {self.fac.structured_max_rank()} (HSS, "
+                      "HODLR)")
                 print(f"#   - factor flops = {flops:.4g} (effective-rank "
                       f"model; dense-equivalent "
                       f"{self.plan.factor_flops:.4g}), rate >= "
@@ -438,11 +453,6 @@ class SparseSolver:
             self.achieved_rtol = float(
                 torch.linalg.vector_norm(rv)
                 / max(float(torch.linalg.vector_norm(bdev)), 1e-300))
-        elif solver == KrylovSolver.REFINE:
-            from .krylov.refine import iterative_refinement
-            xdev, self.its, self.achieved_rtol = iterative_refinement(
-                self.fac, self.ell, bdev, opts.rel_tol, opts.abs_tol,
-                opts.maxit, x0=x0dev)
         else:
             xdev = self._krylov(solver, bdev, x0dev)
         x = self._transform_x(xdev.cpu().numpy())
@@ -496,14 +506,36 @@ class SparseSolver:
               else ReturnCode.NO_CONVERGENCE)
         return x, rc
 
+    def _blocked(self, solver, x0dev) -> bool:
+        """Whether several right-hand sides take one iteration stream
+        (the largest count reported) rather than column by column (the
+        sum): refinement or preconditioned GMRES from zero, not verbose,
+        on a plan of at most ``SPLIT_SOLVE_BUCKETS`` buckets, as in the
+        JAX package (strumpack_tpu/solver.py:584-645)."""
+        nb = sum(len(lvl) for lvl in self.plan.levels)
+        return (x0dev is None and not self.opts.verbose
+                and nb <= SPLIT_SOLVE_BUCKETS
+                and solver in (KrylovSolver.REFINE, KrylovSolver.PREC_GMRES))
+
     def _krylov(self, solver, bdev, x0dev=None):
-        """GMRES or BiCGStab (``krylov/solvers.py``) on the permuted
-        system, preconditioned by the multifrontal solve for PREC_*,
-        from ``x0dev`` or zero; several right-hand sides solve column by
-        column."""
+        """Iterative refinement, GMRES or BiCGStab (``krylov/``) on the
+        permuted system, preconditioned by the multifrontal solve for
+        PREC_* and REFINE, from ``x0dev`` or zero.  Several right-hand
+        sides: refinement runs one stream for all columns where
+        ``_blocked``; otherwise each column solves on its own, and the
+        iteration count is the largest over the columns with the largest
+        residual where ``_blocked``, else the sum with the last column's
+        residual."""
         from .frontal import numeric
         from .krylov import solvers as K
+        from .krylov.refine import iterative_refinement
         opts = self.opts
+        blocked = self._blocked(solver, x0dev)
+        if solver == KrylovSolver.REFINE and (bdev.ndim == 1 or blocked):
+            x, self.its, self.achieved_rtol = iterative_refinement(
+                self.fac, self.ell, bdev, opts.rel_tol, opts.abs_tol,
+                opts.maxit, x0=x0dev)
+            return x
 
         def spmv(v):
             return self.ell @ v
@@ -512,6 +544,10 @@ class SparseSolver:
             return numeric.solve(self.fac, r).to(r.dtype)
 
         def one(bcol, x0col):
+            if solver == KrylovSolver.REFINE:
+                return iterative_refinement(
+                    self.fac, self.ell, bcol, opts.rel_tol, opts.abs_tol,
+                    opts.maxit, x0=x0col)
             if solver in (KrylovSolver.PREC_GMRES, KrylovSolver.GMRES):
                 return K.gmres(
                     spmv, prec if solver == KrylovSolver.PREC_GMRES else None,
@@ -530,13 +566,16 @@ class SparseSolver:
         if bdev.ndim == 1:
             x, self.its, self.achieved_rtol = one(bdev, x0dev)
             return x
-        cols, self.its = [], 0
+        cols, its, rels = [], [], []
         for j in range(bdev.shape[1]):
-            x, its, self.achieved_rtol = one(
+            x, it, rel = one(
                 bdev[:, j].contiguous(),
                 None if x0dev is None else x0dev[:, j].contiguous())
             cols.append(x)
-            self.its += its
+            its.append(it)
+            rels.append(rel)
+        self.its = max(its) if blocked else sum(its)
+        self.achieved_rtol = max(rels) if blocked else rels[-1]
         return torch.stack(cols, dim=1)
 
     # -- stats -------------------------------------------------------------

@@ -9,6 +9,8 @@ import torch
 
 import jax.numpy as jnp
 
+import torch_ref  # noqa: F401  (one torch thread a test worker)
+
 import strumpack_tpu as sj
 from strumpack_tpu.frontal import blr as BJ
 from strumpack_tpu.ops.rrqr import rrqr as rrqr_jax
@@ -136,8 +138,14 @@ def test_compress_tiles_svd_matches_jax():
     np.testing.assert_allclose((U @ V).numpy(),
                                np.asarray(Uj) @ np.asarray(Vj), rtol=0,
                                atol=1e-10 * np.abs(T).max())
-    with pytest.raises(NotImplementedError):
-        BT._compress_tiles(torch.from_numpy(T), 1e-10, 8, "aca")
+    # the element-based compressors are ported too (ops/aca.py)
+    for algo in ("aca", "baca"):
+        U, V, ranks = BT._compress_tiles(torch.from_numpy(T), 1e-10, 8, algo)
+        Uj, Vj, rj = BJ._compress_tiles(jnp.asarray(T), 1e-10, 8, algo=algo)
+        np.testing.assert_array_equal(ranks.numpy(), np.asarray(rj))
+        np.testing.assert_allclose((U @ V).numpy(),
+                                   np.asarray(Uj) @ np.asarray(Vj), rtol=0,
+                                   atol=1e-10 * np.abs(T).max())
 
 
 @pytest.mark.parametrize("s_pad,u_pad,leaf", [

@@ -468,3 +468,104 @@ def test_every_option_solves_without_a_grid(cuda_device):
         assert A.max_scaled_residual(x, b) < 1e2 * s.opts.rel_tol, kw
         x0, rc = s.solve(b, x0=x)
         assert rc == st.ReturnCode.SUCCESS and s.Krylov_iterations() <= 1, kw
+
+
+def _structured_cases():
+    """(name, matrix grid, SPOptions fields, nested option setter) of
+    each compression this slice ports, small Poisson problems in f32."""
+    def hss(sampling):
+        def tweak(o):
+            o.hss.leaf_size, o.hss.max_rank, o.hss.rel_tol = 16, 16, 1e-6
+            o.hss.sampling = sampling
+        return tweak
+
+    def composite(o):
+        o.hodlr_min_sep_size, o.lossy_min_sep_size = 256, 8
+        o.hss.leaf_size, o.hss.rel_tol = 32, 1e-6
+        o.blr.rel_tol, o.blr.cb_compression = 1e-6, True
+
+    def blr(algo, cbc):
+        def tweak(o):
+            o.blr.rel_tol, o.blr.low_rank_algorithm = 1e-6, algo
+            o.blr.cb_compression = cbc
+        return tweak
+    return [
+        ("hss", (40, 40), dict(compression="HSS",
+                               compression_min_sep_size=32), hss(False)),
+        ("hss_sample", (64, 64), dict(compression="HSS",
+                                      compression_min_sep_size=30),
+         hss(True)),
+        ("hodlr", (40, 40), dict(compression="HODLR",
+                                 compression_min_sep_size=32), hss(False)),
+        ("blr_hodlr", (16, 16, 16), dict(compression="BLR_HODLR",
+                                         compression_min_sep_size=64),
+         composite),
+        ("zfp_blr_hodlr", (16, 16, 16), dict(
+            compression="ZFP_BLR_HODLR", compression_min_sep_size=64),
+         composite),
+        ("lossy8", (30, 30), dict(compression="LOSSY",
+                                  compression_min_sep_size=16,
+                                  lossy_precision=8), None),
+        ("lossless", (30, 30), dict(compression="LOSSLESS"), None),
+        ("blr_cb_aca", (16, 16, 16), dict(compression="BLR",
+                                          compression_min_sep_size=64),
+         blr("aca", True)),
+        # BACA's core pseudo-inverse cuts at 1e-10 (as the JAX package's),
+        # below f32 resolution: its tiles run in f64
+        ("blr_baca", (16, 16, 16), dict(compression="BLR",
+                                        compression_min_sep_size=64,
+                                        factor_dtype="float64",
+                                        refine_dtype="float64"),
+         blr("baca", False)),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c[0] for c in _structured_cases()])
+def test_structured_compression_solves(cuda_device, case):
+    """Each compression this slice ports solves a small Poisson problem on
+    the card (f32 but for BACA) under preconditioned GMRES, within the
+    JAX tests' gate (1e2 x rel_tol), and launches K1 as often as the plan
+    says."""
+    import strumpack_tpu_torch as st
+    from strumpack_tpu_torch.sparse.gen import poisson2d, poisson3d
+    _, dims, kw, tweak = next(c for c in _structured_cases()
+                              if c[0] == case)
+    A = poisson2d(dims[0]) if len(dims) == 2 else poisson3d(dims[0])
+    kw = dict(kw, compression=st.CompressionType[kw["compression"]])
+    kw = dict(dict(factor_dtype="float32", refine_dtype="float32"), **kw)
+    opts = st.SPOptions(rel_tol=1e-5, **kw)
+    if tweak is not None:
+        tweak(opts)
+    s = st.SparseSolver(opts, device=cuda_device)
+    s.set_csr_matrix(A)
+    s.reorder(*dims)
+    k1 = extend_add.launches
+    s.factor()
+    assert extend_add.launches - k1 == s.pdev.ea_pairs() * s.factor_passes
+    b = A.spmv(np.random.default_rng(0).standard_normal(A.n))
+    x, rc = s.solve(b)
+    assert rc == st.ReturnCode.SUCCESS
+    assert A.max_scaled_residual(x.astype(np.float64), b) < 1e2 * 1e-5
+
+
+@pytest.mark.cuda
+def test_extend_add_of_compressed_child_on_card(cuda_device):
+    """K1 on a BLR-compressed child densified for its parent's fronts (the
+    solver's ``_child_blocks`` and the pair's ``loc`` map) is bit-exact
+    against the plain gather."""
+    from strumpack_tpu_torch.frontal import numeric as N
+    rng = np.random.default_rng(12)
+    nf, p, u, nfc, t = 4, 300, 256, 6, 64
+    pos = torch.from_numpy(_random_pos(rng, nf, p, u)).to(cuda_device)
+    idx = torch.tensor([2, -1, 5, 0], dtype=torch.int32, device=cuda_device)
+    loc = torch.where(idx >= 0, torch.arange(nf, device=cuda_device,
+                                             dtype=torch.int32), -1)
+    CB = torch.randn(nfc, u, u, device=cuda_device)
+    comp = N._compress_cb(CB, t, 1e-3, 8)
+    C = N._child_blocks(comp, idx).contiguous()
+    F = torch.randn(nf, p, p, device=cuda_device)
+    before = extend_add.launches
+    got = extend_add(F.clone(), C, loc, pos)
+    assert extend_add.launches == before + 1
+    assert torch.equal(got, extend_add_plain(F.clone(), C, loc, pos))

@@ -8,6 +8,8 @@ import torch
 
 import jax.numpy as jnp
 
+import torch_ref  # noqa: F401  (one torch thread a test worker)
+
 from strumpack_tpu.frontal.numeric import _extend_add_blocks
 from strumpack_tpu.ops.pallas_extadd import (extend_add_pallas,
                                              precompute_windows)

@@ -9,6 +9,8 @@ import torch
 
 import jax.numpy as jnp
 
+import torch_ref  # noqa: F401  (one torch thread a test worker)
+
 from strumpack_tpu.frontal.numeric import _factor_bucket
 from strumpack_tpu.ops.pallas_lu import (nopivot_factor_bucket_xla,
                                          pallas_factor_bucket,

@@ -8,6 +8,8 @@ iteration counts; residuals meet ``test_sparse_seq.py``'s gate
 import numpy as np
 import pytest
 
+import torch_ref  # noqa: F401  (one torch thread a test worker)
+
 import strumpack_tpu as sj
 from strumpack_tpu.sparse.gen import poisson2d, random_spd
 

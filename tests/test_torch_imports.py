@@ -31,10 +31,11 @@ def _imports(path):
 
 def test_package_run_imports_no_jax():
     """A fresh interpreter (no test conftest) imports the package and runs
-    its host pipeline, a small CPU solve, a small BLR + GMRES solve and
-    the general-input paths (no grid, every ordering module, matching,
-    SPD, double float): no jax* and no strumpack_tpu.* module may appear
-    in sys.modules."""
+    its host pipeline, a small CPU solve, a small BLR + GMRES solve, the
+    general-input paths (no grid, every ordering module, matching, SPD,
+    double float) and the rank-structured fronts (HSS, sampled HSS, HODLR,
+    the ZFP_BLR_HODLR composite with compressed CBs and ACA tiles): no
+    jax* and no strumpack_tpu.* module may appear in sys.modules."""
     code = (
         "import sys, numpy as np\n"
         "import strumpack_tpu_torch as st\n"
@@ -65,6 +66,21 @@ def test_package_run_imports_no_jax():
         "    s.set_csr_matrix(A)\n"
         "    x, rc = s.solve(A.spmv(np.ones(A.n)))\n"
         "    assert rc == st.ReturnCode.SUCCESS, kw\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "B = poisson2d(16)\n"
+        "for comp, samp in (('HSS', False), ('HODLR', False),\n"
+        "                   ('ZFP_BLR_HODLR', True)):\n"
+        "    o = st.SPOptions(compression=st.CompressionType[comp],\n"
+        "                     compression_min_sep_size=8, hodlr_min_sep_size=16,\n"
+        "                     lossy_min_sep_size=4)\n"
+        "    o.hss.leaf_size, o.hss.sampling = 8, samp\n"
+        "    o.blr.leaf_size, o.blr.low_rank_algorithm = 8, 'aca'\n"
+        "    s = st.SparseSolver(o, device='cpu')\n"
+        "    s.set_csr_matrix(B)\n"
+        "    s.reorder(16, 16)\n"
+        "    x, rc = s.solve(B.spmv(np.ones(B.n)))\n"
+        "    assert rc == st.ReturnCode.SUCCESS, comp\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax')"
         " or m == 'strumpack_tpu' or m.startswith('strumpack_tpu.')]\n"
         "print(bad)\n"
@@ -87,7 +103,9 @@ def test_sources_import_no_jax():
                 "krylov/solvers.py", "sparse/ordering/nd.py",
                 "sparse/ordering/separator_reorder.py", "ops/twofloat.py",
                 "sparse/matching.py", "sparse/ordering/amd.py",
-                "native/__init__.py"):
+                "native/__init__.py", "ops/aca.py", "structured/hss.py",
+                "structured/hodlr.py", "structured/hss_sample.py",
+                "structured/draws.py"):
         assert mod in names, mod
     assert len(files) > 20 and not bad, bad
 

@@ -7,6 +7,8 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
+import torch_ref  # noqa: F401  (one torch thread a test worker)
+
 from strumpack_tpu.sparse.csr import CSRMatrix as SJ_CSR
 
 import strumpack_tpu_torch as st

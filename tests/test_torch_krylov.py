@@ -8,6 +8,8 @@ import torch
 
 import jax.numpy as jnp
 
+import torch_ref  # noqa: F401  (one torch thread a test worker)
+
 from strumpack_tpu.krylov import solvers as KJ
 from strumpack_tpu.sparse.gen import poisson2d
 

@@ -6,6 +6,8 @@ and the matched, scaled matrix the same."""
 import numpy as np
 import pytest
 
+import torch_ref  # noqa: F401  (one torch thread a test worker)
+
 from strumpack_tpu.sparse import matching as sj_matching
 from strumpack_tpu.sparse.csr import CSRMatrix as SJ_CSR
 

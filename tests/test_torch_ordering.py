@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import scipy.sparse.linalg
 
+import torch_ref  # noqa: F401  (one torch thread a test worker)
+
 import strumpack_tpu as sj
 from strumpack_tpu import native as sj_native
 from strumpack_tpu.sparse.csr import CSRMatrix as SJ_CSR

@@ -8,6 +8,8 @@ import torch
 
 import jax.numpy as jnp
 
+import torch_ref  # noqa: F401  (one torch thread a test worker)
+
 from strumpack_tpu.ops import pallas_panel_lu as PPJ
 
 from strumpack_tpu_torch.ops import front_lu as FL

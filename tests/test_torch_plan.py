@@ -4,6 +4,8 @@ and K3 routes the same buckets in both packages."""
 import numpy as np
 import pytest
 
+import torch_ref  # noqa: F401  (one torch thread a test worker)
+
 import strumpack_tpu as sj
 from strumpack_tpu.ops import pallas_lu as PL
 from strumpack_tpu.sparse.gen import poisson2d, poisson3d

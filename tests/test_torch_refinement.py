@@ -5,6 +5,8 @@ initial guess, f32 factors refined in f64, and bench.py's double-float
 counts."""
 import numpy as np
 
+import torch_ref  # noqa: F401  (one torch thread a test worker)
+
 from strumpack_tpu.sparse.gen import poisson2d, poisson3d
 
 import strumpack_tpu_torch as st

@@ -6,6 +6,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_ref  # noqa: F401  (one torch thread a test worker)
+
 import strumpack_tpu as sj
 from strumpack_tpu.frontal import numeric as sj_numeric
 from strumpack_tpu.sparse.gen import poisson2d, poisson3d

@@ -1,0 +1,135 @@
+"""Helpers of the port's tests (``tests/test_torch_*.py``).
+
+* One torch thread a process: pytest-xdist runs six workers on the
+  host's cores, and the port's small CPU tensors gain nothing from
+  intra-op threads there, while their spinning threads slow every worker
+  (on an 8-core host the port's test files took 12.3 min of CPU with the
+  default thread count; with one thread, and three more files, 10.8).
+* ``jax_draw``: the JAX package's own random draws for the port's draw
+  function (``strumpack_tpu_torch/structured/draws.py``), so a test can
+  replay the JAX package's sketches.
+* ``jax_tree_numpy``: a JAX ``Factors.tree`` as the numpy tree
+  ``strumpack_tpu_torch.interop.factors_from_numpy`` takes.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+
+_JDT = {torch.float32: jnp.float32, torch.float64: jnp.float64}
+
+
+def jax_key(key):
+    """The JAX key a port draw names: (seed, op, arg, ...) with "fold"
+    (fold_in) and "split" (the i-th key of split)."""
+    k = jax.random.PRNGKey(key[0])
+    for op, arg in zip(key[1::2], key[2::2]):
+        if op == "fold":
+            k = jax.random.fold_in(k, jnp.asarray(arg, jnp.int32))
+        else:
+            k = jax.random.split(k)[arg]
+    return k
+
+
+def jax_draw(kind, shape, dtype, gen, key, high=None):
+    """``draws.draw`` answered with the JAX package's draw of ``key``."""
+    k = jax_key(key)
+    if kind == "normal":
+        a = jax.random.normal(k, shape, _JDT[dtype])
+    elif kind == "randint":
+        a = jax.random.randint(k, shape, 0, high)
+    else:
+        a = jax.random.bernoulli(k, 0.5, shape)
+    return torch.from_numpy(np.array(a)).to(gen.device)
+
+
+def _np(v):
+    return jax.tree_util.tree_map(np.asarray, v)
+
+
+def structured_numpy(H):
+    """A JAX HSSMatrix/HODLRMatrix as the attribute dict
+    ``interop.structured_from_numpy`` takes."""
+    kind = "hss" if hasattr(H, "Uleaf") else "hodlr"
+    d = {k: v for k, v in H.__dict__.items()
+         if k not in ("dtype", "_constrain", "_shard_level", "_factored")}
+    out = {k: (_np(v) if k not in ("m", "t", "mp", "L", "r", "rel_tol")
+               else v) for k, v in d.items()}
+    out["kind"] = kind
+    return out
+
+
+def jax_tree_numpy(tree):
+    """A JAX ``Factors.tree`` with its arrays as numpy, structured
+    entries as ``structured_numpy`` dicts."""
+    out = {}
+    for name in ("lu", "perm", "L21", "U12", "blr", "blr_ranks"):
+        out[name] = {k: _np(v) for k, v in tree.get(name, {}).items()}
+    out["hss"] = {k: (structured_numpy(H), _np(S12), _np(F21))
+                  for k, (H, S12, F21) in tree.get("hss", {}).items()}
+    return out
+
+
+def solver_pair(A, dims, compression="NONE", tweak=None, **kw):
+    """The JAX package's and the port's (CPU) solvers on A with the same
+    options, reordered: ``compression`` a CompressionType name, ``kw``
+    SPOptions fields (an enum value is taken by name from each package's
+    own enum), ``tweak(opts)`` sets nested options in both."""
+    import enum
+
+    import strumpack_tpu as sj
+    import strumpack_tpu_torch as st
+    out = []
+    for mod, dev in ((sj, {}), (st, {"device": "cpu"})):
+        own = {k: (getattr(mod, type(v).__name__)[v.name]
+                   if isinstance(v, enum.Enum) else v)
+               for k, v in kw.items()}
+        o = mod.SPOptions(
+            compression=getattr(mod.CompressionType, compression), **own)
+        if tweak is not None:
+            tweak(o)
+        s = mod.SparseSolver(o, **dev)
+        s.set_csr_matrix(A if mod is sj else
+                         st.CSRMatrix(A.n, A.rowptr, A.colind, A.data))
+        assert s.reorder(*dims).name == "SUCCESS"
+        out.append(s)
+    return tuple(out)
+
+
+BUCKET_FLAGS = ("blr", "tile", "max_rank", "adm_band", "blr_variant",
+                "lr_algo", "cb_comp", "cb_rank", "lossy", "hss", "hodlr",
+                "hss_leaf", "hss_rank", "hss_sample")
+
+
+def assert_flags_identical(ref, port):
+    """The plans identical array for array (``test_torch_plan``) and flag
+    for flag: front types, BLR tiles and caps, compressed CBs, lossy
+    bits, HSS/HODLR leaves and ranks, the sampled buckets' ELL arrays."""
+    from test_torch_plan import assert_plans_identical
+    assert_plans_identical(ref, port)
+    for lr, lp in zip(ref.plan.levels, port.plan.levels):
+        for br, bp in zip(lr, lp):
+            for name in BUCKET_FLAGS:
+                assert getattr(bp, name) == getattr(br, name), name
+            assert (bp.samp is None) == (br.samp is None)
+            if bp.samp is not None:
+                assert bp.samp_meta == br.samp_meta
+                for k, v in br.samp.items():
+                    assert bp.samp[k].dtype == v.dtype, k
+                    np.testing.assert_array_equal(bp.samp[k], v, err_msg=k)
+
+
+def solve_on_jax_factors(ref, port, b):
+    """(port solution, JAX solution) of one multifrontal solve of the
+    permuted b on the JAX package's factors, carried into the port."""
+    from strumpack_tpu.frontal import numeric as sj_numeric
+    from strumpack_tpu_torch.frontal import numeric as st_numeric
+    from strumpack_tpu_torch.interop import factors_from_numpy
+    bp = ref._transform_b(b)
+    want = np.asarray(sj_numeric.solve(ref.fac, bp))
+    fac = factors_from_numpy(port.pdev, jax_tree_numpy(ref.fac.tree),
+                             dtype=torch.float64)
+    got = st_numeric.solve(fac, torch.from_numpy(np.asarray(bp))).numpy()
+    return got, want
