@@ -53,7 +53,18 @@ Phases, in order; any failure raises and the script exits non-zero:
     device memory, the device time by group;
 14. hss64, hodlr64: Poisson 64^3 with HSS and HODLR fronts built from the
     dense F11 for separators >= 1024, f32, preconditioned GMRES to 1e-6;
-15. one JSON line {"kernels": [...]}, then the last line
+15. helmholtz32: bench.py's helmholtz32 configuration (complex Helmholtz
+    32^3 in complex64 through its interleaved real form, HODBF fronts for
+    separators >= 512, preconditioned GMRES to 1e-4), the steady factor
+    after update_matrix_values, peak device memory, its SVDs' device time
+    by events;
+16. helm32_native: the same matrix factored exactly in native complex64
+    (refinement to 1e-5) and complex128, K1's complex instantiations
+    bit-exact at every K1 shape of its plan;
+17. chunked64: exact64's problem with buckets above a 0.5 GB working set
+    run in chunks (STRUMPACK_TPU_CHUNK_GB): factors against exact64's,
+    peak device memory against exact64's and the model;
+18. one JSON line {"kernels": [...]}, then the last line
     {"ok": true, "device": {...}}.
 
 The launch counters are set to 0 just before each solver phase factors
@@ -168,11 +179,12 @@ def k1_shapes(pdev):
 K1_FLAT_MAX = 1 << 26
 
 
-def check_k1(torch, pdev, rng, picks=None, full=True, counts=None):
+def check_k1(torch, pdev, rng, picks=None, full=True, counts=None,
+             dtype=None):
     """K1 against its plain version at ``picks`` (default: k1_pairs), on
-    random F and child blocks: bit-exact, timed by events, with the
-    index_add_ yardstick where its flat index has at most K1_FLAT_MAX
-    values.  A pair whose child bucket hands on BLR-compressed CBs takes
+    random F and child blocks of ``dtype`` (default float32): bit-exact,
+    timed by events, with the index_add_ yardstick where its flat index
+    has at most K1_FLAT_MAX values.  A pair whose child bucket hands on BLR-compressed CBs takes
     one dense block a parent front (``numeric._child_blocks``) and the
     pair's ``loc`` map, as the solver launches it.  Without ``full`` the
     times take fewer repetitions; ``counts``: pairs of each pick's
@@ -180,6 +192,8 @@ def check_k1(torch, pdev, rng, picks=None, full=True, counts=None):
     from strumpack_tpu_torch.ops.extend_add import extend_add, extend_add_plain
     out = []
     reps = {} if full else dict(warmup=1, reps=3)
+    dtype = dtype or torch.float32
+    itemsize = torch.empty((), dtype=dtype).element_size()
     if picks is None:
         picks = k1_pairs(pdev)
     for n, (p, nf, li, bi, side, pr) in enumerate(picks):
@@ -193,21 +207,23 @@ def check_k1(torch, pdev, rng, picks=None, full=True, counts=None):
         # drawn on the card: hodlr100's fronts reach 2 GB
         gen = torch.Generator(device="cuda").manual_seed(
             int(rng.integers(2 ** 31)))
-        F = torch.randn((nf, p, p), generator=gen, device="cuda")
-        C = torch.randn((nfc, u, u), generator=gen, device="cuda")
+        F = torch.randn((nf, p, p), generator=gen, device="cuda",
+                        dtype=dtype)
+        C = torch.randn((nfc, u, u), generator=gen, device="cuda",
+                        dtype=dtype)
         Fk = extend_add(F.clone(), C, idx, pos)
         Fp = extend_add_plain(F.clone(), C, idx, pos)
         torch.cuda.synchronize()
         err = float((Fk - Fp).abs().max())
         check(torch.equal(Fk, Fp), f"K1 bit-exact at p={p} u={u} nf={nf} "
-              f"nfc={nfc} compressed child {comp}")
+              f"nfc={nfc} compressed child {comp} {dtype}")
         del Fp
         # bound: each touched element of F read and written once, its
         # addend read once, plus the maps of the fronts that have a child
         posn = pos.cpu().numpy()
         idxn = idx.cpu().numpy()
         nval = ((posn >= 0) & (idxn >= 0)[:, None]).sum(axis=1)
-        nbytes = (3 * 4 * int((nval.astype(np.int64) ** 2).sum())
+        nbytes = (3 * itemsize * int((nval.astype(np.int64) ** 2).sum())
                   + 4 * p * int((idxn >= 0).sum()) + 4 * nf)
         Fw = F.clone()
         ms = cuda_ms(lambda: extend_add(Fw, C, idx, pos), torch, **reps)
@@ -233,13 +249,15 @@ def check_k1(torch, pdev, rng, picks=None, full=True, counts=None):
                           torch, **reps)
             del flat, Cz, Fl
         rec = dict(p=p, u=u, nf=nf, nfc=nfc, level=li, bucket=bi, side=side,
-                   compressed_child=comp, max_abs_err=err, ms=ms,
+                   compressed_child=comp, dtype=str(dtype).split(".")[-1],
+                   max_abs_err=err, ms=ms,
                    plain_ms=plain, bound_ms=nbytes / PEAK_BYTES * 1e3,
                    bound_by="bytes", library_ms=lib)
         if counts is not None:
             rec["pairs"] = counts[n]
-        print("K1" if full else "K1-structured", json.dumps(rec),
-              flush=True)
+        label = ("K1" if full else "K1-structured" if not dtype.is_complex
+                 else "K1-complex")
+        print(label, json.dumps(rec), flush=True)
         out.append(rec)
         del F, C, Fk, Fw
     return out
@@ -926,20 +944,99 @@ def structured_checks(torch, rng, plans, k3_done, k2_done, k4_done):
     return k1, k3, k2, k4
 
 
+# the complex phases (bench.py:358-410): helmholtz32 exactly, and its
+# matrix factored exactly in native complex64 and complex128
+COMPLEX_PHASES = ("helmholtz32", "helm32_c64", "helm32_c128")
+# chunked64's working-set cap: exact64's seven top levels chunk (16
+# buckets), none of them on the K3 or K2 routes
+CHUNK_GB = "0.5"
+
+
+def make_complex(name, nx=32):
+    """(A, reordered solver, reorder seconds, right-hand side) of a
+    complex phase.  helmholtz32 is bench.py's configuration exactly
+    (helmholtz3d(32, k0=10) in complex64 through complex_via_real, HODBF
+    fronts for separators >= 512 with leaf 128, rank 64 and tolerance
+    1e-4, preconditioned GMRES to 1e-4); helm32_c64 and helm32_c128 factor
+    the same matrix exactly in native complex64 (refinement to 1e-5) and
+    complex128.  The right-hand side is A x for x complex normal from
+    default_rng(0), as bench.py's."""
+    import strumpack_tpu_torch as st
+    from strumpack_tpu_torch.sparse.gen import helmholtz3d
+    if name == "helmholtz32":
+        dt = "complex64"
+        opts = st.SPOptions(factor_dtype=dt, refine_dtype=dt,
+                            krylov_solver=st.KrylovSolver.PREC_GMRES,
+                            rel_tol=1e-4,
+                            compression=st.CompressionType.HODBF,
+                            compression_min_sep_size=512,
+                            complex_via_real=True)
+        opts.hss.leaf_size = 128
+        opts.hss.max_rank = 64
+        opts.hss.rel_tol = 1e-4
+    else:
+        dt = "complex64" if name == "helm32_c64" else "complex128"
+        opts = st.SPOptions(factor_dtype=dt, refine_dtype=dt,
+                            krylov_solver=st.KrylovSolver.REFINE, nd_leaf=16)
+        if dt == "complex64":
+            opts.rel_tol = 1e-5
+    A = helmholtz3d(nx, k0=10.0, dtype=np.dtype(dt))
+    s = st.SparseSolver(opts)
+    s.set_csr_matrix(A)
+    t0 = time.perf_counter()
+    check(s.reorder(nx, nx, nx) == st.ReturnCode.SUCCESS, f"{name} reorder")
+    t = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(A.n)
+         + 1j * rng.standard_normal(A.n)).astype(np.dtype(dt))
+    return A, s, t, A.spmv(x)
+
+
+def compare_factors(torch, ref, fac, plan):
+    """The dense factors (lu, perm, L21, U12) of ``fac`` against ``ref``'s
+    (the same matrix and plan but for chunks): per bucket whether they are
+    bit-exact, and the largest difference relative to the largest entry.
+    Returns (record, the K3/K2-routed buckets all bit-exact)."""
+    from strumpack_tpu_torch.ops import front_lu as FL
+    exact = differ = 0
+    worst = 0.0
+    kernel_exact = True
+    for key, lu in ref.tree["lu"].items():
+        li, bi = map(int, key.split(","))
+        bp = plan.levels[li][bi]
+        same, rel = True, 0.0
+        for name in ("lu", "perm", "L21", "U12"):
+            a, b = ref.tree[name][key], fac.tree[name][key]
+            if torch.equal(a, b):
+                continue
+            same = False
+            d = float((a.double() - b.double()).abs().max())
+            rel = max(rel, d / max(float(a.double().abs().max()), 1e-300))
+        exact += same
+        differ += not same
+        worst = max(worst, rel)
+        kernel = (FL.use_cross(bp.s_pad, bp.p, torch.float32)
+                  or FL.k2_holds(bp.p, torch.float32))
+        if kernel and bp.s_pad and not same:
+            kernel_exact = False
+    return dict(buckets_bit_exact=exact, buckets_differing=differ,
+                max_rel_diff=worst), kernel_exact
+
+
 def plan_launches(pdev, dtype):
     """Kernel wrapper -> the plan's launches of one factorization in
     ``dtype``."""
     return dict(extend_add=pdev.ea_pairs(),
                 front_lu_cross=pdev.k3_buckets(dtype),
                 small_lu=pdev.k2_launches(dtype),
-                panel_lu=pdev.k4_launches())
+                panel_lu=pdev.k4_launches(dtype))
 
 
 def run_solver(torch, name, A, s, t_reorder, seed, res_tol=None,
                scaled_tol=None, memory=False, profile=False,
                launched=("extend_add", "front_lu_cross"), peak_check=True,
                k4_design=None, steady=3, nopivot=False, x0_check=False,
-               spd=False, refresh=False):
+               spd=False, refresh=False, b=None):
     """Factor and solve once with the launch counters zeroed, check the
     counts against the plan and the result against the limits, then time
     ``steady`` factor + solve pairs.  ``launched``: the kernels this path
@@ -950,13 +1047,18 @@ def run_solver(torch, name, A, s, t_reorder, seed, res_tol=None,
     ``refresh``: each steady factorization follows update_matrix_values
     (the same values), as a new matrix of the same pattern would;
     ``profile`` "factor" profiles the factorization alone
-    (``device_groups``)."""
+    (``device_groups``), "steady" the steady factorization itself (its
+    profiled wall is the steady time), "svd" times the steady
+    factorization's SVDs by events (``svd_events``); ``b``: the right-hand side
+    (default: A times a normal vector from ``seed``)."""
     import strumpack_tpu_torch as st
     from strumpack_tpu_torch.frontal import numeric
     plan, pdev = s.plan, s.pdev
     nb = sum(len(lvl) for lvl in pdev.levels)
+    calls, empty_calls = pdev.factor_calls()
     rng = np.random.default_rng(seed)
-    b = A.spmv(rng.standard_normal(A.n))
+    if b is None:
+        b = A.spmv(rng.standard_normal(A.n))
     if memory:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -981,9 +1083,9 @@ def run_solver(torch, name, A, s, t_reorder, seed, res_tol=None,
     if k4_design:
         check(counts["panel_lu_designs"][k4_design] == counts["panel_lu"],
               f"{name}: every K4 launch on the {k4_design} design")
-    check(sum(counts["routes"].values()) == nb * passes,
-          f"{name}: every bucket routed")
-    check(counts["routes"]["empty"] == pdev.empty_buckets() * passes,
+    check(sum(counts["routes"].values()) == calls * passes,
+          f"{name}: every bucket (every chunk) routed")
+    check(counts["routes"]["empty"] == empty_calls * passes,
           f"{name}: every empty-separator bucket passed on unfactored")
     if nopivot:
         for k in ("front_lu_cross", "small_lu"):
@@ -992,7 +1094,7 @@ def run_solver(torch, name, A, s, t_reorder, seed, res_tol=None,
     check(rc == st.ReturnCode.SUCCESS, f"{name}: solve returned {rc}")
     check(bool(np.isfinite(x).all()) and x.shape == (A.n,),
           f"{name}: finite solution of shape ({A.n},)")
-    x64 = np.asarray(x, np.float64)
+    x64 = np.asarray(x, np.complex128 if np.iscomplexobj(x) else np.float64)
     res = float(np.linalg.norm(b - A.spmv(x64)) / np.linalg.norm(b))
     scaled = A.max_scaled_residual(x64, b)
     if res_tol is not None:
@@ -1014,13 +1116,22 @@ def run_solver(torch, name, A, s, t_reorder, seed, res_tol=None,
               f"{name}: inertia {inertia}")
     # steady state: the same plan factored and solved again
     steady_times, steady_solve = [], []
+    profiled = None
     for _ in range(steady):
         if refresh:
             s.update_matrix_values(A)
         s._factored = False
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        s.factor()
+        if profile == "steady":
+            # the steady factorization itself under the profiler (its wall
+            # includes the profiler's cost): a factorization of minutes is
+            # not run twice
+            profiled = device_groups(torch, s.factor)
+        elif profile == "svd":
+            profiled = svd_events(torch, s.factor)
+        else:
+            s.factor()
         steady_times.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
         s.solve(b)
@@ -1028,6 +1139,7 @@ def run_solver(torch, name, A, s, t_reorder, seed, res_tol=None,
     t_steady = float(np.median(steady_times))
     rec = dict(phase=name, n=A.n, buckets=nb, levels=plan.n_levels,
                empty_buckets=pdev.empty_buckets(),
+               chunked_buckets=pdev.chunked_buckets(),
                ordering=s.opts.reordering_method.name, plan_launches=want,
                factor_passes=passes, launches=counts,
                factor_nnz=plan.factor_nnz, factor_flops=plan.factor_flops,
@@ -1058,12 +1170,19 @@ def run_solver(torch, name, A, s, t_reorder, seed, res_tol=None,
             # the analytic model is the capacity planner's upper bound
             check(peak <= rec["factor_peak_bytes_model"],
                   f"{name}: peak {peak} bytes within the factor_peak_bytes "
-                  "model")
+                  f"model's {rec['factor_peak_bytes_model']}")
     if profile == "factor":
         # the rank-structured phases: the factorization alone, from the
         # profiler's raw events
         s._factored = False
         rec["profile"] = device_groups(torch, s.factor)
+    elif profile == "steady" and profiled:
+        rec["profile"] = profiled
+        rec["factor_steady_profiled"] = True
+        rec["factor_steady_s"] = profiled["wall_ms"] / 1e3
+    elif profile == "svd":
+        rec["svd"] = profiled
+        rec["factor_steady_s"] = profiled["wall_s"]
     elif profile:
         rec["profile"] = profile_factor(torch, s, b)
     print(name, json.dumps(rec), flush=True)
@@ -1088,8 +1207,9 @@ PROFILER_OVERHEAD = ("Activity Buffer Request", "Buffer Flush")
 # compression, the HSS ULV and HODLR SMW factorizations, and the bucket
 # steps by front kind (numeric._kind)
 RANGE_GROUPS = ("rrqr", "cb_compress", "hss_ulv", "hodlr_smw",
-                "front:hss_sample", "front:hss", "front:hodlr", "front:blr",
-                "front:lossy", "front:dense", "front:empty")
+                "hodbf_factor", "front:hss_sample", "front:hss",
+                "front:hodlr", "front:hodbf", "front:blr", "front:lossy",
+                "front:dense", "front:empty")
 
 
 def _inside(ev, name):
@@ -1172,6 +1292,44 @@ STRUCT_KERNEL_GROUPS = KERNEL_GROUPS + (
 )
 
 
+def svd_events(torch, fn):
+    """Run ``fn`` with every truncated-basis SVD of the structured modules
+    (``structured/hss._svd``: the QR reduction and cuSOLVER's SVD) timed
+    by CUDA events: a light stand-in for ``device_groups`` where a
+    factorization launches millions of kernels (helmholtz32's 7.46
+    million took minutes to trace and read).  Returns the wall seconds
+    and the SVDs' device ms, calls and matrices."""
+    from strumpack_tpu_torch.structured import hss
+    orig = hss._svd
+    recs = []
+
+    def timed(X):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = orig(X)
+        b.record()
+        recs.append((a, b, int(np.prod(X.shape[:-2]))))
+        return out
+    hss._svd = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        hss._svd = orig
+    ms = sum(a.elapsed_time(b) for a, b, _ in recs)
+    out = dict(wall_s=wall, svd_ms=ms, svd_calls=len(recs),
+               svd_matrices=sum(n for _, _, n in recs),
+               svd_share=ms / max(wall * 1e3, 1e-9))
+    print(f"svd: {ms:.1f} ms of SVD (events) in {len(recs)} calls, "
+          f"{out['svd_matrices']} matrices, {100 * out['svd_share']:.1f}% "
+          f"of the {wall:.2f} s wall", flush=True)
+    return out
+
+
 def device_groups(torch, fn):
     """Device time of one call of ``fn`` by kernel group and by port range
     (RANGE_GROUPS), read from the profiler's raw events: hodlr100's factor
@@ -1236,6 +1394,94 @@ def device_groups(torch, fn):
               f"{name}")
     return dict(wall_ms=wall * 1e3, kernel_ms=busy, groups=groups,
                 ranges=ranges, kernels=len(kernels))
+
+
+def complex_phases(torch, rng, runs, main_run, s64, profile="svd"):
+    """Phases 15-17: helmholtz32, helm32_native (with K1's complex
+    instantiations at every K1 shape of its plan) and chunked64 against
+    exact64's solver ``s64`` and record ``main_run``.  helmholtz32's
+    steady factorization is timed with its SVDs by events (``profile``
+    "svd") or profiled by kernel group ("steady", ``device_groups``:
+    minutes more).  Adds their records to ``runs``; returns K1's complex
+    checks."""
+    phase("15 helmholtz32")
+    A, s, t, b = make_complex("helmholtz32")
+    print(f"reorder helmholtz32: {t:.2f} s, n {A.n} (real form {s.A.n}), "
+          f"{s.plan.n_levels} levels, buckets {json.dumps(s.pdev.kinds())}, "
+          f"factor nnz {s.plan.factor_nnz}", flush=True)
+    rec = run_solver(torch, "helmholtz32", A, s, t, seed=0, memory=True,
+                     scaled_tol=1e2 * s.opts.rel_tol, steady=1, refresh=True,
+                     profile=profile, b=b,
+                     launched=("extend_add", "front_lu_cross"))
+    hodbf = [dict(level=bp.level, nf=bp.nf, s=bp.s_pad, u=bp.u_pad,
+                  bf_D=bp.bf_D, bf_r=bp.bf_r, leaf=bp.hss_leaf,
+                  rank=bp.hss_rank, cutoff=bp.bf_cutoff)
+             for lvl in s.plan.levels for bp in lvl if bp.hodbf]
+    rec["hodbf_buckets"] = hodbf
+    print(f"helmholtz32: {len(hodbf)} HODBF buckets {json.dumps(hodbf)}; "
+          f"largest butterfly rank {rec['structured_max_rank']}; peak "
+          f"{rec['peak_bytes']} bytes against the model's "
+          f"{rec['factor_peak_bytes_model']}; factor bytes "
+          f"{rec['factor_bytes_effective']} against dense "
+          f"{rec['dense_factor_bytes']}; launches {rec['launches']} against "
+          f"the plan's {rec['plan_launches']}", flush=True)
+    runs["helmholtz32"] = rec
+    del A, s
+    torch.cuda.empty_cache()
+
+    phase("16 helm32_native")
+    k1_cx = []
+    for name in COMPLEX_PHASES[1:]:
+        A, s, t, b = make_complex(name)
+        dt = getattr(torch, s.opts.factor_dtype)
+        # K1's complex instantiation at every K1 shape of the plan
+        shapes = k1_shapes(s.pdev)
+        new = sorted(shapes)
+        k1_cx += check_k1(torch, s.pdev, rng, picks=[shapes[k][0]
+                                                     for k in new],
+                          full=False, counts=[shapes[k][1] for k in new],
+                          dtype=dt)
+        print(f"{name}: K1 bit-exact at {len(new)} {dt} shapes", flush=True)
+        c64 = name == "helm32_c64"
+        runs[name] = run_solver(torch, name, A, s, t, seed=0, b=b,
+                                res_tol=1e-4 if c64 else None,
+                                scaled_tol=None if c64 else 1e-10,
+                                launched=("extend_add",))
+        del A, s
+        torch.cuda.empty_cache()
+
+    phase("17 chunked64")
+    os.environ["STRUMPACK_TPU_CHUNK_GB"] = CHUNK_GB
+    try:
+        A, s, t = make_solver(64, "float32", 1e-5)
+    finally:
+        del os.environ["STRUMPACK_TPU_CHUNK_GB"]
+    nch = s.pdev.chunked_buckets()
+    chunks = [dict(level=bp.level, nf=bp.nf, p=bp.p, s=bp.s_pad,
+                   chunks=bp.chunks)
+              for lvl in s.plan.levels for bp in lvl if bp.chunks > 1]
+    print(f"chunked64: {nch} chunked buckets at {CHUNK_GB} GB: "
+          f"{json.dumps(chunks)}", flush=True)
+    check(nch >= 1, "chunked64: at least one bucket runs in chunks")
+    rec = run_solver(torch, "chunked64", A, s, t, seed=64, res_tol=1e-4,
+                     memory=True)
+    cmp, kernel_exact = compare_factors(torch, s64.fac, s.fac, s.plan)
+    rec["against_exact64"] = cmp
+    print(f"chunked64 against exact64: {json.dumps(cmp)}; peak "
+          f"{rec['peak_bytes']} bytes against exact64's "
+          f"{main_run['peak_bytes']} and the model's "
+          f"{rec['factor_peak_bytes_model']}", flush=True)
+    check(kernel_exact, "chunked64: the K3/K2-routed buckets' factors "
+          "bit-exact against exact64's")
+    check(cmp["max_rel_diff"] <= 1e-4, "chunked64: factors equal to "
+          f"exact64's to f32 rounding ({cmp['max_rel_diff']:.3g})")
+    check(rec["peak_bytes"] < main_run["peak_bytes"],
+          "chunked64: peak below exact64's")
+    runs["chunked64"] = rec
+    del A, s
+    torch.cuda.empty_cache()
+    return k1_cx
+
 
 
 def main():
@@ -1379,7 +1625,7 @@ def main():
     torch.cuda.empty_cache()
     main_run = run_solver(torch, "exact64", A64, s64, t_reorder64, seed=64,
                           res_tol=1e-4, memory=True, profile=True)
-    del A64, s64
+    # exact64's solver stays for chunked64's comparison (phase 17)
     torch.cuda.empty_cache()
 
     phase("6 f64")
@@ -1390,7 +1636,7 @@ def main():
 
     phase("7 blr50")
     blr_run = run_solver(torch, "blr50", A50, s50, t_reorder50, seed=50,
-                         res_tol=1e-3, memory=True, profile=True,
+                         res_tol=1e-3, memory=True,
                          launched=tuple(_wrappers()), peak_check=False,
                          k4_design="cta")
     del A50, s50
@@ -1408,8 +1654,7 @@ def main():
 
     phase("8 nd64")
     for name in ("nd64", "metis64"):
-        _, _, rec = general_run(name, res_tol=1e-4, x0_check=True,
-                                profile=name == "nd64")
+        _, _, rec = general_run(name, res_tol=1e-4, x0_check=True)
         print(f"{name}: factor nnz {rec['factor_nnz']} against exact64's "
               f"geometric {main_run['factor_nnz']} "
               f"({rec['factor_nnz'] / main_run['factor_nnz']:.3f}x)",
@@ -1439,8 +1684,7 @@ def main():
     phase("11 orderings")
     for name in ORD_PHASES:
         general_run(name, scaled_tol=1e-10, steady=1,
-                    nopivot=name == "aniso24_nopivot",
-                    profile=name == "ord_NATURAL")
+                    nopivot=name == "aniso24_nopivot")
 
     phase("12 df32")
     general_run("df32", scaled_tol=1e-10)
@@ -1468,7 +1712,11 @@ def main():
     for name in ("hss64", "hodlr64"):
         struct_run(name)
 
-    phase("15 summary")
+    k1_cx = complex_phases(torch, rng, runs, main_run, s64)
+    del A64, s64
+    torch.cuda.empty_cache()
+
+    phase("18 summary")
     print("K4-blocked", json.dumps(blocked))
     print("K3-general", json.dumps(k3_gen))
     print("K2-general", json.dumps(k2_gen))
@@ -1476,6 +1724,7 @@ def main():
     print("K3-structured", json.dumps(k3_st))
     print("K2-structured", json.dumps(k2_st))
     print("K4-structured", json.dumps(k4_st))
+    print("K1-complex", json.dumps(k1_cx))
     print("ptxas", json.dumps(ptxas))
 
     def sums(recs):
@@ -1489,11 +1738,11 @@ def main():
         return out
 
     def entry(name, src, replaces, run, key, recs, general=(),
-              structured=()):
+              structured=(), complex_=()):
         """One kernel's line: launches from ``run`` (and by phase), the
         sums over its main checks ``recs``, and its checks at the
-        general-input and the rank-structured phases' shapes summed
-        apart (the library yardstick where it was timed)."""
+        general-input, the rank-structured and the complex phases' shapes
+        summed apart (the library yardstick where it was timed)."""
         gen = sums(general)
         return dict(
             name=name, route="cuda", source=src, replaces=replaces,
@@ -1501,7 +1750,8 @@ def main():
             launches_by_phase={n: r["launches"][key]
                                for n, r in runs.items()},
             max_abs_err=max(r["max_abs_err"]
-                            for r in (*recs, *general, *structured)),
+                            for r in (*recs, *general, *structured,
+                                      *complex_)),
             ms=sum(r["ms"] for r in recs),
             plain_ms=sum(r["plain_ms"] for r in recs),
             bound_ms=sum(r["bound_ms"] for r in recs),
@@ -1510,7 +1760,7 @@ def main():
             library_ms=(None if any(r["library_ms"] is None for r in recs)
                         else sum(r["library_ms"] for r in recs)),
             general_shapes=gen, structured_shapes=sums(structured),
-            shapes=recs)
+            complex_shapes=sums(complex_), shapes=recs)
 
     def k3_entry(e):
         # the kernel alone beside the wrapper + Schur GEMM of ``ms``
@@ -1522,7 +1772,7 @@ def main():
     kernels = [
         entry("extend_add", "strumpack_tpu_torch/csrc/extend_add.cu",
               "strumpack_tpu/ops/pallas_extadd.py:204", main_run,
-              "extend_add", k1, structured=k1_st),
+              "extend_add", k1, structured=k1_st, complex_=k1_cx),
         k3_entry(entry("front_lu_cross", "strumpack_tpu_torch/csrc/front_lu.cu",
                        "strumpack_tpu/ops/pallas_lu.py:286", main_run,
                        "front_lu_cross", k3, k3_gen, k3_st)),

@@ -22,10 +22,27 @@
 // memory once; threads run along j, so the F row segment is read and
 // written coalesced and the C row segment is read in order (pos is order
 // preserving along j).  Rows with pos < 0 are skipped before any F traffic.
+//
+// Complex fronts (complex64, complex128) take the same kernel on a
+// two-component element whose add is componentwise: the sum of two complex
+// numbers rounds each part on its own, as the gather form's complex add
+// does, so these instantiations are bit-exact too.
 #include <cuda_runtime.h>
 #include <cstdint>
 
 namespace {
+
+// a complex value of real type R, laid out as PyTorch's complex R (real
+// part first, aligned to its size)
+template <typename R>
+struct alignas(2 * sizeof(R)) cplx {
+  R re, im;
+};
+
+template <typename R>
+__device__ __forceinline__ cplx<R> operator+(cplx<R> a, cplx<R> b) {
+  return {a.re + b.re, a.im + b.im};
+}
 
 constexpr int TI = 16;      // parent rows per block
 constexpr int TJ_MAX = 128; // parent columns per block (= max blockDim.x)
@@ -93,6 +110,16 @@ int extend_add_f32(void* F, const void* C, const void* idx, const void* pos,
 int extend_add_f64(void* F, const void* C, const void* idx, const void* pos,
                    int64_t nf, int p, int u, void* stream) {
   return launch<double>(F, C, idx, pos, nf, p, u, stream);
+}
+
+int extend_add_c64(void* F, const void* C, const void* idx, const void* pos,
+                   int64_t nf, int p, int u, void* stream) {
+  return launch<cplx<float>>(F, C, idx, pos, nf, p, u, stream);
+}
+
+int extend_add_c128(void* F, const void* C, const void* idx, const void* pos,
+                    int64_t nf, int p, int u, void* stream) {
+  return launch<cplx<double>>(F, C, idx, pos, nf, p, u, stream);
 }
 
 const char* extend_add_error_string(int err) {

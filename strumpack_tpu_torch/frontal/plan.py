@@ -19,13 +19,14 @@ uniform shapes.
 The counterpart of ``strumpack_tpu/frontal/plan.py``: the plan arrays
 and front-type flags are identical to that module's for every compression
 the port runs (dense, BLR with or without compressed contribution blocks,
-HSS built dense or by sampling, HODLR, lossy and lossless, and the
-BLR_HODLR/ZFP_BLR_HODLR composites), chosen per bucket as FrontFactory
-does.  HODBF (butterfly) fronts, nf-chunked buckets (the memory planner)
-and the distributed plan build are not part of this package yet.
+HSS built dense or by sampling, HODLR, HODBF (butterfly), lossy and
+lossless, and the BLR_HODLR/ZFP_BLR_HODLR composites), chosen per bucket
+as FrontFactory does, and so are the nf-chunks of the memory planner.
+The distributed plan build is not part of this package yet.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -66,6 +67,29 @@ def pad_size(x: int) -> int:
         if p >= x:
             return p
     raise ValueError(f"front dimension {x} exceeds pad schedule")
+
+
+def chunk_cap_bytes() -> int:
+    """Working-set cap of one bucket above which it runs in nf-chunks:
+    ``STRUMPACK_TPU_CHUNK_GB`` when set, else 3 GB, as in the JAX package
+    (``strumpack_tpu/frontal/plan.py:69-78``)."""
+    env = os.environ.get("STRUMPACK_TPU_CHUNK_GB")
+    return int(float(env) * 1e9) if env else 3 * 10 ** 9
+
+
+def choose_chunks(nf: int, p: int, itemsize: int = 4) -> int:
+    """Sequential chunks of an [nf, p, p] bucket
+    (``strumpack_tpu/frontal/plan.py:81-100``): 1 while the plain assembly
+    model (3 dense [p, p] buffers a front) fits the cap, else the smallest
+    power of two whose chunk fits the cap at 8 buffers a front."""
+    cap = chunk_cap_bytes()
+    if nf * 3 * p * p * itemsize <= cap:
+        return 1
+    per_front = 8 * p * p * itemsize
+    chunks = 1
+    while chunks < nf and (nf // chunks) * per_front > cap:
+        chunks *= 2
+    return chunks
 
 
 def batch_pad(x: int) -> int:
@@ -128,6 +152,19 @@ class BucketPlan:
     hss_sample: bool = False
     samp: dict = None            # per-front ELL arrays of the sparse block
     samp_meta: dict = None       # {"p": padded front width}
+    # HODBF fronts (FrontHODLR with butterfly levels): F11 as HODLR with
+    # butterfly off-diagonal blocks, S12 = F11^-1 F12 and F21 stored as
+    # rectangular butterflies of depth bf_D and rank bf_r where bf_D >= 2;
+    # bf_direct factors F11 by the direct butterfly factorization (dense
+    # nodes up to bf_cutoff), else F11 is a HODLR front
+    hodbf: bool = False
+    bf_D: int = 0
+    bf_r: int = 0
+    bf_direct: bool = False
+    bf_cutoff: int = 256
+    # memory-bounded execution: the bucket's fronts are assembled and
+    # factored nf / chunks at a time (``choose_chunks``)
+    chunks: int = 1
 
     @property
     def nf(self) -> int:
@@ -143,12 +180,12 @@ class BucketPlan:
 
     @property
     def structured(self) -> bool:
-        """HSS (dense-built or sampled) or HODLR fronts."""
-        return self.hss or self.hodlr or self.hss_sample
+        """HSS (dense-built or sampled), HODLR or HODBF fronts."""
+        return self.hss or self.hodlr or self.hodbf or self.hss_sample
 
     @property
     def compressed(self) -> bool:
-        """Rank-structured fronts: BLR, HSS or HODLR."""
+        """Rank-structured fronts: BLR, HSS, HODLR or HODBF."""
         return self.blr or self.structured
 
 
@@ -172,18 +209,14 @@ class LevelPlan:
         return len(self.levels)
 
 
-# the message of every front type that comes with the next slice
-HODBF_LATER = ("HODBF (butterfly) fronts are not ported yet: they come "
-               "with the complex slice (helmholtz32)")
-
-
 def _assign_bucket_compression(bp: BucketPlan, compression) -> None:
     """Per-bucket front-type selection (FrontFactory role,
     FrontFactory.hpp:84-133; ``strumpack_tpu/frontal/plan.py:216-318``):
     resolves the configured CompressionType and its size thresholds into
-    the bucket's blr/hss/hss_sample/hodlr/lossy flags, with the BLR tile,
-    rank cap, admissibility, schedule and compressor, the HSS/HODLR leaf
-    and rank, and the compressed-CB tile and rank."""
+    the bucket's blr/hss/hss_sample/hodlr/hodbf/lossy flags, with the BLR
+    tile, rank cap, admissibility, schedule and compressor, the
+    HSS/HODLR/HODBF leaf and rank, the butterfly depth, rank and direct
+    factorization of HODBF fronts, and the compressed-CB tile and rank."""
     if compression is None:
         return
     from ..options import CompressionType as CT
@@ -225,11 +258,25 @@ def _assign_bucket_compression(bp: BucketPlan, compression) -> None:
             else:
                 bp.hss = True
         elif eff == CT.HODBF or compression.hodlr_butterfly_levels > 0:
-            raise NotImplementedError(HODBF_LATER)
+            bp.hodbf = True
         else:
             bp.hodlr = True
         bp.hss_leaf = min(compression.hss.leaf_size, max(sp // 4, 16))
         bp.hss_rank = min(compression.hss.max_rank, bp.hss_leaf)
+        if bp.hodbf and sp >= 2 * bp.hss_leaf and compression.hodbf_direct:
+            # the direct butterfly factorization of F11 when its HODLR
+            # tree has a level
+            bp.bf_direct = True
+            bp.bf_cutoff = int(compression.hodbf_dense_cutoff)
+        if bp.hodbf and up > 0:
+            # the deepest even butterfly depth the [s_pad, u_pad] blocks
+            # take (``structured/butterfly.bf_depth2`` at leaves >= 16)
+            D = 0
+            while (sp % 2 ** (D + 2) == 0 and up % 2 ** (D + 2) == 0
+                   and min(sp, up) // 2 ** (D + 2) >= 16):
+                D += 2
+            bp.bf_D = D
+            bp.bf_r = bp.hss_rank
     if cb_comp and bp.compressed:
         # memory-efficient variant: hand the parent a BLR-compressed CB
         # (FrontBLR F22blr_ role), 128-wide tiles where they divide u
@@ -349,7 +396,12 @@ def build_plan(Ap: CSRMatrix, tree: SeparatorTree,
                             u_pad=int(u_pad_all[sel[0]]),
                             fronts=sel, ds=ds_b, du=du_b)
             sp, up, p = bp.s_pad, bp.u_pad, bp.p
+            bp.chunks = choose_chunks(nf, p)
             _assign_bucket_compression(bp, compression)
+            if bp.hss_sample:
+                # sampled fronts are never assembled
+                # (``strumpack_tpu/frontal/numeric.py:164-165``)
+                bp.chunks = 1
             # structural child-presence flags (see BucketPlan.hasL doc)
             for side, cha in (("L", tree.lch), ("R", tree.rch)):
                 chb = np.full(nf, -1, dtype=np.int64)

@@ -33,14 +33,72 @@ def _tree(v, device, batch=False):
     return t[None] if batch else t
 
 
+def _lu_from_lapack(lu, piv, device, batch):
+    """A JAX ``lu_factor`` pair (packed LU, 0-based LAPACK row swaps) as
+    the port's (LU, applied-form permutation)."""
+    piv = np.asarray(piv)
+    k = piv.shape[-1]
+    flat = piv.reshape(-1, k)
+    perm = np.tile(np.arange(k), (flat.shape[0], 1))
+    rows = np.arange(flat.shape[0])
+    for i in range(k):
+        j = flat[:, i]
+        perm[rows, i], perm[rows, j] = perm[rows, j], perm[rows, i].copy()
+    return (_tree(lu, device, batch),
+            _tree(perm.reshape(piv.shape), device, batch))
+
+
+def _fnode_from_numpy(d, device, batch):
+    from .structured.hodbf import FNode
+    if d is None:
+        return None
+    kind = d["kind"]
+    W = None
+    if kind == "bf":
+        W = hodbf_from_numpy(d["W"], device, batch)
+    elif kind == "dense":
+        W = _lu_from_lapack(*d["W"], device, batch)
+
+    def opt(x):
+        return None if x is None else _tree(x, device, batch)
+    return FNode(kind, d["ml"], d["Dg"], d["rg12"], d["rg21"],
+                 lu=(None if d["lu"] is None
+                     else _lu_from_lapack(*d["lu"], device, batch)),
+                 G12=opt(d["G12"]), G21=opt(d["G21"]), W=W,
+                 f1=_fnode_from_numpy(d["f1"], device, batch),
+                 f2=_fnode_from_numpy(d["f2"], device, batch))
+
+
+def hodbf_from_numpy(d, device, batch=None):
+    """A JAX ``HODBFMatrix`` (``d``: its attributes and factor chain as
+    numpy, ``d["froot"]`` the FNode chain as nested dicts) as the port's,
+    with the front axis added to a JAX object of one front."""
+    from .structured.hodbf import HODBFMatrix
+    H = HODBFMatrix.__new__(HODBFMatrix)
+    if batch is None:
+        batch = np.ndim(d["D"]) == 3
+    for k in _STATIC:
+        setattr(H, k, d[k])
+    H.bf_D, H.bf_r = list(d["bf_D"]), list(d["bf_r"])
+    H.D = _tree(d["D"], device, batch)
+    H.bf12 = [_tree(b, device, batch) for b in d["bf12"]]
+    H.bf21 = [_tree(b, device, batch) for b in d["bf21"]]
+    H.nf = H.D.shape[0]
+    H.dtype = H.D.dtype
+    H._froot = _fnode_from_numpy(d.get("froot"), device, batch)
+    return H
+
+
 def structured_from_numpy(d, device):
-    """A JAX ``HSSMatrix`` or ``HODLRMatrix`` as the port's object of the
-    same kind.  ``d`` is the JAX object's attributes with its arrays as
-    numpy (``d["kind"]`` "hss" or "hodlr"); a JAX object of one front
-    (unbatched, as the JAX package keeps buckets of one front) gains the
-    front axis."""
+    """A JAX ``HSSMatrix``, ``HODLRMatrix`` or ``HODBFMatrix`` as the
+    port's object of the same kind.  ``d`` is the JAX object's attributes
+    with its arrays as numpy (``d["kind"]`` "hss", "hodlr" or "hodbf"); a
+    JAX object of one front (unbatched, as the JAX package keeps buckets
+    of one front) gains the front axis."""
     from .structured.hodlr import HODLRMatrix
     from .structured.hss import HSSMatrix
+    if d["kind"] == "hodbf":
+        return hodbf_from_numpy(d, device)
     hss = d["kind"] == "hss"
     H = (HSSMatrix if hss else HODLRMatrix).__new__(
         HSSMatrix if hss else HODLRMatrix)
@@ -71,10 +129,13 @@ def _entry(name, val, device):
         return tuple(_tensor(a, device) for a in val)
     if name == "hss":
         H, S12, F21 = val
+        one = np.ndim(H["D"]) == 3
 
         def pair(x):
             if x is None:
                 return None
+            if isinstance(x, dict):     # a HODBF front's butterfly
+                return _tree(x, device, one)
             if isinstance(x, tuple):    # a sampled front's pair
                 return tuple(_tensor(a, device)[None] if np.ndim(a) == 2
                              else _tensor(a, device) for a in x)
@@ -97,9 +158,10 @@ def factors_from_numpy(pdev: PlanDev, tree_np, dtype=None,
     "L21", "U12" (dense buckets; a lossy bucket's entries bf16 arrays or
     (codes, scales) pairs), "blr" (the 8-tuples ``(lud, perms, Uu, Vu,
     Ul, Vl, Du, Dl)``), "blr_ranks" and "hss" (``(H, S12, F21)``, H as
-    ``structured_from_numpy`` takes it, S12/F21 arrays, sampled pairs or
-    None) to ``{"li,bi": value}``; missing names are empty.  ``dtype`` is
-    the compute dtype (default: that of the first exact factor)."""
+    ``structured_from_numpy`` takes it, S12/F21 arrays, butterfly
+    dicts, sampled pairs or None) to ``{"li,bi": value}``; missing names
+    are empty.  ``dtype`` is the compute dtype (default: that of the
+    first exact factor)."""
     device = pdev.device if device is None else torch.device(device)
     tree = {}
     for name in ("lu", "perm", "L21", "U12", "blr", "blr_ranks", "hss"):

@@ -14,7 +14,8 @@ import torch
 
 from . import _build
 
-_FN = {torch.float32: "extend_add_f32", torch.float64: "extend_add_f64"}
+_FN = {torch.float32: "extend_add_f32", torch.float64: "extend_add_f64",
+       torch.complex64: "extend_add_c64", torch.complex128: "extend_add_c128"}
 _SIG = (ctypes.c_int, [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int,
                                                ctypes.c_int, ctypes.c_void_p])
 
@@ -37,7 +38,8 @@ def extend_add_plain(F, C, idx, pos):
 def extend_add(F, C, idx, pos):
     """In-place extend-add of one (side, child bucket) pair.
 
-    F [nf, p, p] float32/float64; C [nfc, u, u] of F's dtype; idx [nf]
+    F [nf, p, p] float32/float64/complex64/complex128; C [nfc, u, u] of
+    F's dtype; idx [nf]
     int32 child block in C (-1 = none); pos [nf, p] int32 parent slot ->
     child row (-1 = none).  CPU tensors take the plain version; CUDA
     tensors launch the kernel (``extend_add.launches`` counts launches)."""

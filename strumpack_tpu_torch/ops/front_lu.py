@@ -301,6 +301,18 @@ def k3_capacity_drift():
     return drift
 
 
+def kernel_dtype(dtype) -> bool:
+    """Whether K2 and K3 have an instantiation for ``dtype``: float32 and
+    float64.  Complex fronts take the library route, as the JAX package's
+    do (its kernels are f32 only, ``strumpack_tpu/ops/pallas_lu.py:47``)."""
+    return dtype in _FN
+
+
+def k2_holds(p, dtype) -> bool:
+    """Whether K2 takes a dense front of width p in ``dtype``."""
+    return p <= MAX_PALLAS_P and kernel_dtype(dtype)
+
+
 def use_cross(s, p, dtype):
     """Routing predicate for K3, derived on the H100 (PERF.md, the routing
     table): K3 takes every front [p, p] with s eliminated columns that it
@@ -312,7 +324,10 @@ def use_cross(s, p, dtype):
     batch size does not enter.  Beyond the JAX package's cross fronts (p <= 128, or p <= 640
     with 32 fronts or more and a TPU block in VMEM) it takes the fronts
     of p > 128 that K3 holds at any batch size, and s < 8 at p > 64; of
-    the JAX package's it leaves out s > 64, which K3 does not hold."""
+    the JAX package's it leaves out s > 64, which K3 does not hold.
+    Complex fronts never take K3."""
+    if not kernel_dtype(dtype):
+        return False
     if p <= MAX_PALLAS_P and s < 8:
         return False
     return _k3_refusal(p, s, torch.finfo(dtype).bits // 8) is None
@@ -408,7 +423,7 @@ def lapack_pivots_to_perm(lu, piv):
     row i), the form ``jax.lax.linalg.lu`` returns."""
     P, _, _ = torch.lu_unpack(lu, piv, unpack_data=False)
     # A = P L U, so row i of P^T A = L U is row perm[i] of A
-    return P.argmax(dim=-2)
+    return P.real.argmax(dim=-2)
 
 
 def replace_tiny_diagonal(lu, thresh):

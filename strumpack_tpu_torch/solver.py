@@ -3,8 +3,8 @@
 Role of the reference's ``SparseSolverBase`` + ``SparseSolver``
 (SparseSolverBase.cpp:304-721: reorder -> factor -> solve, equilibration,
 rhs transforms, statistics), the counterpart of ``strumpack_tpu/solver.py``
-for the exact (LU with or without pivoting, or Cholesky) and the BLR
-multifrontal paths:
+for the exact (LU with or without pivoting, or Cholesky) and the compressed
+multifrontal paths, in real or complex arithmetic:
 
   reorder():  host — MC64-family matching and scaling, equilibration,
               pattern symmetrization, a fill-reducing ordering (geometric,
@@ -12,7 +12,7 @@ multifrontal paths:
               AMD, MMD, MLF; separator reordering under compression),
               symbolic factorization, level/bucket plan
   factor():   device — level-batched numeric factorization (dense, lossy,
-              BLR, HSS, sampled HSS or HODLR fronts, BLR-compressed
+              BLR, HSS, sampled HSS, HODLR or HODBF fronts, BLR-compressed
               contribution blocks), with the adaptive-rank restart under
               compression
   solve():    device — multifrontal solve, directly, inside iterative
@@ -21,7 +21,10 @@ multifrontal paths:
               (AUTO: refinement for exact factors, PREC_GMRES under
               compression), from zero or an initial guess
 
-and the factor diagnostics (inertia, pivot growth, subnormals).
+and the factor diagnostics (inertia, pivot growth, subnormals).  A
+complex matrix factors natively (complex64/complex128 factor and refine
+dtypes) or, with ``complex_via_real``, as its real-equivalent interleaved
+expansion.
 
 The device is CUDA unless the caller asks for another (``device="cpu"``);
 without CUDA and without an explicit device the constructor raises.
@@ -137,28 +140,36 @@ class SparseSolver:
         self.its = 0
         self.achieved_rtol = 0.0
         self.factor_passes = 0   # factorizations of the last factor()
+        self._cvr = None       # complex dtype of a complex_via_real input
         self._reordered = False
         self._factored = False
 
     # -- input -------------------------------------------------------------
-    def _check_supported(self):
-        """HODBF (butterfly) fronts come with the next slice of the port."""
-        from .frontal.plan import HODBF_LATER
-        C = CompressionType
-        if (self.opts.compression == C.HODBF
-                or (self.opts.hodlr_butterfly_levels > 0
-                    and self.opts.compression in (C.HODLR, C.BLR_HODLR,
-                                                  C.ZFP_BLR_HODLR))):
-            raise NotImplementedError(HODBF_LATER)
+    def _maybe_expand_complex(self, A):
+        """With ``complex_via_real``, a complex A as its real-equivalent
+        interleaved expansion (``strumpack_tpu/solver.py:59-80``): complex
+        factor and refine dtypes become their real ones, and each grid
+        point carries two dofs (``components`` doubled once)."""
+        opts = self.opts
+        if not (opts.complex_via_real and np.iscomplexobj(A.data)):
+            return A
+        first = self._cvr is None
+        self._cvr = np.dtype(A.data.dtype)
+        A = A.to_real_interleaved()
+        for attr in ("factor_dtype", "refine_dtype"):
+            v = getattr(opts, attr)
+            if v == "complex64":
+                setattr(opts, attr, "float32")
+            elif v == "complex128":
+                setattr(opts, attr, "float64")
+        if first:
+            opts.components *= 2
+        return A
 
     def set_csr_matrix(self, A) -> None:
         if not isinstance(A, CSRMatrix):
             A = CSRMatrix.from_scipy(A)
-        if np.iscomplexobj(A.data):
-            raise NotImplementedError(
-                "complex matrices are not ported yet: they come with the "
-                "next slice (complex and HODBF fronts, helmholtz32)")
-        self.A = A
+        self.A = self._maybe_expand_complex(A)
         self._reordered = False
         self._factored = False
 
@@ -167,6 +178,7 @@ class SparseSolver:
         Reference: StrumpackSparseSolver.hpp:196 + structure-reuse test."""
         if not isinstance(A, CSRMatrix):
             A = CSRMatrix.from_scipy(A)
+        A = self._maybe_expand_complex(A)
         if self.A is None or A.nnz != self.A.nnz:
             raise ValueError("update_matrix_values needs a matrix with the "
                              "same pattern as the one set before")
@@ -226,7 +238,6 @@ class SparseSolver:
     def reorder(self, nx=None, ny=None, nz=None) -> ReturnCode:
         if self.A is None:
             return ReturnCode.MATRIX_NOT_SET
-        self._check_supported()
         t0 = time.perf_counter()
         opts = self.opts
         A = self.A
@@ -322,6 +333,9 @@ class SparseSolver:
                                      hss_tol=opts.hss.rel_tol)
 
         self.factor_passes = 0
+        # the old factors go before the new ones are built: a refactor
+        # (update_matrix_values, the restart below) holds one set at a time
+        self.fac = None
         self.fac = run_factor()
         # adaptive rank control (solver.py:315-353 of the JAX package, the
         # role of HSSMatrix.compress.hpp:37-100): buckets whose masked
@@ -354,6 +368,7 @@ class SparseSolver:
                 if opts.verbose:
                     print("# adaptive rank restart: saturated caps doubled, "
                           "re-factoring")
+                self.fac = None
                 self.fac = run_factor()
         self._sync()
         self._factored = True
@@ -421,7 +436,21 @@ class SparseSolver:
 
     def solve(self, b, x0=None):
         """Solve A x = b for b [n] or [n, nrhs], from the initial guess
-        ``x0`` (b's shape) or from zero; returns (x, ReturnCode)."""
+        ``x0`` (b's shape) or from zero; returns (x, ReturnCode).  With
+        ``complex_via_real`` active, b, x0 and x are complex vectors of
+        the original system, solved as the interleaved real one
+        (``strumpack_tpu/solver.py:431-444``)."""
+        if self._cvr is not None:
+            br = CSRMatrix.complex_to_real_vec(np.asarray(b))
+            x0r = (None if x0 is None
+                   else CSRMatrix.complex_to_real_vec(np.asarray(x0)))
+            x, rc = self._solve(br, x0r)
+            if x is not None:
+                x = CSRMatrix.real_to_complex_vec(np.asarray(x), self._cvr)
+            return x, rc
+        return self._solve(b, x0)
+
+    def _solve(self, b, x0=None):
         if self.A is None:
             return None, ReturnCode.MATRIX_NOT_SET
         if not self._factored:

@@ -118,6 +118,47 @@ class CSRMatrix:
         colcnd = (cmax.min() / cmax.max()) if self.n else 1.0
         return dr, dc, rowcnd, colcnd, amax
 
+    def to_real_interleaved(self) -> "CSRMatrix":
+        """The real-equivalent expansion of a complex matrix
+        (``strumpack_tpu/sparse/csr.py:121-163``): each entry a + bi
+        becomes the 2x2 block [[a, -b], [b, a]] at rows and columns
+        (2i, 2i+1) x (2j, 2j+1), the unknowns interleaved as
+        [Re x_0, Im x_0, Re x_1, ...]; geometric ND treats a grid point's
+        two dofs as ``components``."""
+        assert np.iscomplexobj(self.data)
+        n2 = 2 * self.n
+        counts = np.diff(self.rowptr)
+        rowptr = np.zeros(n2 + 1, np.int64)
+        np.cumsum(np.repeat(counts * 2, 2), out=rowptr[1:])
+        a = np.real(self.data).astype(np.float64)
+        b = np.imag(self.data).astype(np.float64)
+        c0 = 2 * self.colind
+        rows = np.repeat(np.arange(self.n), counts)
+        k = 2 * (np.arange(self.nnz) - self.rowptr[rows])
+        colind = np.empty(rowptr[-1], np.int64)
+        data = np.empty(rowptr[-1], np.float64)
+        # row 2i: (2j, a), (2j+1, -b); row 2i+1: (2j, b), (2j+1, a)
+        for e, re, im in ((rowptr[2 * rows] + k, a, -b),
+                          (rowptr[2 * rows + 1] + k, b, a)):
+            colind[e], colind[e + 1] = c0, c0 + 1
+            data[e], data[e + 1] = re, im
+        return CSRMatrix(n2, rowptr, colind, data,
+                         symm_sparse=self.symm_sparse)
+
+    @staticmethod
+    def complex_to_real_vec(x: np.ndarray) -> np.ndarray:
+        """[n] complex (or [n, k]) -> [2n(, k)] interleaved real."""
+        x = np.asarray(x)
+        out = np.empty((2 * x.shape[0],) + x.shape[1:], np.float64)
+        out[0::2] = np.real(x)
+        out[1::2] = np.imag(x)
+        return out
+
+    @staticmethod
+    def real_to_complex_vec(y: np.ndarray, dtype=np.complex128):
+        """The inverse of ``complex_to_real_vec``."""
+        return (y[0::2] + 1j * y[1::2]).astype(dtype)
+
     def max_scaled_residual(self, x: np.ndarray, b: np.ndarray) -> float:
         """Componentwise scaled residual max_i |Ax-b|_i / (|A||x|+|b|)_i.
 

@@ -3,8 +3,9 @@
 Role of the stencil code inlined in the reference's examples
 (``examples/sparse/testPoisson2d.cpp``, ``testPoisson3d.cpp:54-78``):
 5/7-point Poisson stencils on regular grids, and the harder real test
-matrices of the JAX package's generator (random SPD, anisotropic and
-high-contrast diffusion, shifted indefinite Helmholtz, a saddle point),
+matrices of the JAX package's generator (complex Helmholtz, random SPD,
+anisotropic and high-contrast diffusion, shifted indefinite Helmholtz, a
+saddle point),
 used both by tests and by ``chip_smoke.py`` so that no external matrix
 downloads are required.
 """
@@ -63,6 +64,20 @@ def poisson3d(nx: int, ny: int | None = None, nz: int | None = None,
         add(idx[tuple(hi)], idx[tuple(lo)], -1.0)
     return CSRMatrix.from_coo(n, np.concatenate(rows), np.concatenate(cols),
                               np.concatenate(vals))
+
+
+def helmholtz3d(nx: int, k0: float = 10.0,
+                dtype=np.complex128) -> CSRMatrix:
+    """Complex 3D Helmholtz -lap - (k0^2 + 0.05i k0^2) h^2 on an nx^3 grid
+    (``strumpack_tpu/sparse/gen.py:66``; the reference's
+    examples/sparse/testHelmholtz.cpp, damped to stay invertible)."""
+    import scipy.sparse as sp
+    A = poisson3d(nx, dtype=np.float64)
+    h = 1.0 / (nx + 1)
+    shift = (k0 * h) ** 2 + 1j * 0.05 * (k0 * h) ** 2
+    S = A.to_scipy().astype(dtype)
+    S = S - shift * sp.eye(A.n, dtype=dtype, format="csr")
+    return CSRMatrix.from_scipy(S)
 
 
 def random_spd(n: int, density: float = 0.02, seed: int = 0,

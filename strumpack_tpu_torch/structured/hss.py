@@ -76,7 +76,7 @@ def _lu(A):
                                       device=A.device)
     lu, piv, _ = torch.linalg.lu_factor_ex(A)
     P, _, _ = torch.lu_unpack(lu, piv, unpack_data=False)
-    return lu, P.argmax(dim=-2)
+    return lu, P.real.argmax(dim=-2)
 
 
 def _lu_solve(lu, perm, b):
@@ -130,6 +130,13 @@ def cat_fronts(objs):
             return tuple(cat([v[i] for v in vals]) for i in range(len(v0)))
         if isinstance(v0, dict):
             return {k: cat([v[k] for v in vals]) for k in v0}
+        if hasattr(v0, "__dict__"):     # nested factor objects (HODBF)
+            if hasattr(v0, "nf"):
+                return cat_fronts(vals)
+            o = v0.__class__.__new__(v0.__class__)
+            for k in vars(v0):
+                setattr(o, k, cat([getattr(v, k) for v in vals]))
+            return o
         return v0
     for k, v in first.__dict__.items():
         out.__dict__[k] = cat([o.__dict__[k] for o in objs])
@@ -150,6 +157,8 @@ def tensors(obj):
         elif isinstance(v, dict):
             for x in v.values():
                 walk(x)
+        elif hasattr(v, "__dict__"):    # nested factor objects (HODBF)
+            walk(list(vars(v).values()))
     walk(list(obj.__dict__.values()))
     return out
 

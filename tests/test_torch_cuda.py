@@ -31,7 +31,8 @@ def _random_pos(rng, nf, p, u):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex64, torch.complex128])
 def test_extend_add_kernel_bit_exact(cuda_device, dtype):
     rng = np.random.default_rng(11)
     for nf, p, u, nfc in ((5, 40, 24, 7), (2, 300, 200, 3)):
@@ -569,3 +570,105 @@ def test_extend_add_of_compressed_child_on_card(cuda_device):
     got = extend_add(F.clone(), C, loc, pos)
     assert extend_add.launches == before + 1
     assert torch.equal(got, extend_add_plain(F.clone(), C, loc, pos))
+
+
+def _grid_solver(device, A, dtype, tweak=None, **kw):
+    """The port's solver on A of a cubic grid, reordered on it;
+    ``tweak(opts)`` sets nested options."""
+    import strumpack_tpu_torch as st
+    o = st.SPOptions(factor_dtype=dtype, refine_dtype=dtype, **kw)
+    if tweak is not None:
+        tweak(o)
+    s = st.SparseSolver(o, device=device)
+    s.set_csr_matrix(A)
+    n = round(A.n ** (1 / 3))
+    assert s.reorder(n, n, n) == st.ReturnCode.SUCCESS
+    return s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,via_real", [("complex128", False),
+                                            ("complex64", False),
+                                            ("complex64", True)])
+def test_complex_solves_match_the_cpu(cuda_device, dtype, via_real):
+    """Native complex factors (the library route, K1's complex
+    instantiations) and the interleaved real form on the card against the
+    port on the CPU: the same plan, K1 launched as the plan says, the
+    solutions equal to the dtype's rounding."""
+    import strumpack_tpu_torch as st
+    from strumpack_tpu_torch.sparse.gen import helmholtz3d
+    A = helmholtz3d(10, k0=8.0)
+    rng = np.random.default_rng(0)
+    b = A.spmv(rng.standard_normal(A.n) + 1j * rng.standard_normal(A.n))
+    xs = {}
+    for dev in ("cpu", cuda_device):
+        s = _grid_solver(dev, A, dtype, complex_via_real=via_real)
+        k1 = extend_add.launches
+        x, rc = s.solve(b)
+        assert rc == st.ReturnCode.SUCCESS
+        assert np.iscomplexobj(x)
+        if dev != "cpu":
+            assert extend_add.launches - k1 == s.pdev.ea_pairs() > 0
+        xs[dev] = x
+    tol = 1e-12 if dtype == "complex128" else 1e-4
+    assert A.max_scaled_residual(xs[cuda_device], b) < tol
+    np.testing.assert_allclose(xs[cuda_device], xs["cpu"], rtol=0,
+                               atol=tol * np.abs(xs["cpu"]).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("complex_input", [False, True])
+def test_hodbf_front_solves(cuda_device, complex_input):
+    """HODBF fronts on the card (the direct butterfly factorization of
+    F11, butterfly S12 and F21): Poisson 16^3 in f64 and a complex
+    Helmholtz 12^3, preconditioned GMRES within the JAX tests' gate."""
+    import strumpack_tpu_torch as st
+    from strumpack_tpu_torch.sparse.gen import helmholtz3d, poisson3d
+    A = helmholtz3d(12, k0=8.0) if complex_input else poisson3d(16)
+    dtype = "complex128" if complex_input else "float64"
+
+    def tweak(o):
+        o.hss.leaf_size, o.hss.max_rank, o.hss.rel_tol = 32, 32, 1e-8
+    s = _grid_solver(cuda_device, A, dtype, tweak,
+                     compression=st.CompressionType.HODBF,
+                     compression_min_sep_size=64, rel_tol=1e-8,
+                     krylov_solver=st.KrylovSolver.PREC_GMRES)
+    assert any(bp.hodbf and bp.bf_D >= 2 and bp.u_pad > 0
+               for lvl in s.plan.levels for bp in lvl)
+    rng = np.random.default_rng(0)
+    xex = rng.standard_normal(A.n) + (1j * rng.standard_normal(A.n)
+                                      if complex_input else 0)
+    b = A.spmv(xex)
+    x, rc = s.solve(b)
+    assert rc == st.ReturnCode.SUCCESS
+    assert A.max_scaled_residual(x, b) < 1e2 * 1e-8
+
+
+@pytest.mark.cuda
+def test_chunked_exact_solve(cuda_device, monkeypatch):
+    """A plan chunked by a tiny cap on the card: K1, K3 and K2 launched
+    once a chunk as the plan counts them, and the solution equal to the
+    unchunked run's to f64 rounding."""
+    import strumpack_tpu_torch as st
+    from strumpack_tpu_torch.sparse.gen import poisson3d
+    A = poisson3d(12)
+    b = A.spmv(np.random.default_rng(0).standard_normal(A.n))
+    xs = {}
+    for cap in ("0.001", "100"):
+        monkeypatch.setenv("STRUMPACK_TPU_CHUNK_GB", cap)
+        before = (extend_add.launches, FL.partial_factor.launches,
+                  FL.factor_bucket.launches)
+        s = _grid_solver(cuda_device, A, "float64", nd_leaf=8,
+                         krylov_solver=st.KrylovSolver.DIRECT)
+        x, rc = s.solve(b)
+        assert rc == st.ReturnCode.SUCCESS
+        got = (extend_add.launches - before[0],
+               FL.partial_factor.launches - before[1],
+               FL.factor_bucket.launches - before[2])
+        dt = torch.float64
+        assert got == (s.pdev.ea_pairs(), s.pdev.k3_buckets(dt),
+                       s.pdev.k2_launches(dt))
+        assert (s.pdev.chunked_buckets() > 0) == (cap == "0.001")
+        xs[cap] = x
+    np.testing.assert_allclose(xs["0.001"], xs["100"], rtol=0,
+                               atol=1e-12 * np.abs(xs["100"]).max())

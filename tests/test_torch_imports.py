@@ -33,9 +33,11 @@ def test_package_run_imports_no_jax():
     """A fresh interpreter (no test conftest) imports the package and runs
     its host pipeline, a small CPU solve, a small BLR + GMRES solve, the
     general-input paths (no grid, every ordering module, matching, SPD,
-    double float) and the rank-structured fronts (HSS, sampled HSS, HODLR,
-    the ZFP_BLR_HODLR composite with compressed CBs and ACA tiles): no
-    jax* and no strumpack_tpu.* module may appear in sys.modules."""
+    double float), the rank-structured fronts (HSS, sampled HSS, HODLR,
+    the ZFP_BLR_HODLR composite with compressed CBs and ACA tiles), and
+    complex input (native complex128 and complex_via_real) with HODBF
+    fronts: no jax* and no strumpack_tpu.* module may appear in
+    sys.modules."""
     code = (
         "import sys, numpy as np\n"
         "import strumpack_tpu_torch as st\n"
@@ -81,6 +83,21 @@ def test_package_run_imports_no_jax():
         "    s.reorder(16, 16)\n"
         "    x, rc = s.solve(B.spmv(np.ones(B.n)))\n"
         "    assert rc == st.ReturnCode.SUCCESS, comp\n"
+        "from strumpack_tpu_torch.sparse.gen import helmholtz3d, poisson3d\n"
+        "H = helmholtz3d(8, k0=8.0)\n"
+        "for A, via in ((H, False), (H, True), (poisson3d(8), False)):\n"
+        "    o = st.SPOptions(compression=st.CompressionType.HODBF,\n"
+        "                     compression_min_sep_size=16,\n"
+        "                     complex_via_real=via,\n"
+        "                     factor_dtype=A.data.dtype.name,\n"
+        "                     refine_dtype=A.data.dtype.name)\n"
+        "    o.hss.leaf_size = 16\n"
+        "    s = st.SparseSolver(o, device='cpu')\n"
+        "    s.set_csr_matrix(A)\n"
+        "    s.reorder(8, 8, 8)\n"
+        "    assert s.pdev.kinds()['hodbf'] > 0\n"
+        "    x, rc = s.solve(A.spmv(np.ones(A.n, A.data.dtype)))\n"
+        "    assert rc == st.ReturnCode.SUCCESS and x.dtype == A.data.dtype\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax')"
         " or m == 'strumpack_tpu' or m.startswith('strumpack_tpu.')]\n"
         "print(bad)\n"
@@ -105,7 +122,8 @@ def test_sources_import_no_jax():
                 "sparse/matching.py", "sparse/ordering/amd.py",
                 "native/__init__.py", "ops/aca.py", "structured/hss.py",
                 "structured/hodlr.py", "structured/hss_sample.py",
-                "structured/draws.py"):
+                "structured/draws.py", "structured/butterfly.py",
+                "structured/hodbf.py"):
         assert mod in names, mod
     assert len(files) > 20 and not bad, bad
 

@@ -54,8 +54,9 @@ def assert_plans_identical(ref, port):
     for lp, lr in zip(port.plan.levels, ref.plan.levels):
         assert len(lp) == len(lr)
         for bp, br in zip(lp, lr):
-            assert (bp.level, bp.nf, bp.p, bp.s_pad, bp.u_pad) == (
-                br.level, br.nf, br.p, br.s_pad, br.u_pad)
+            assert (bp.level, bp.nf, bp.p, bp.s_pad, bp.u_pad,
+                    bp.chunks) == (br.level, br.nf, br.p, br.s_pad,
+                                   br.u_pad, br.chunks)
             for name in BUCKET_ARRAYS:
                 a, b = getattr(bp, name), getattr(br, name)
                 assert a.dtype == b.dtype, name

@@ -121,21 +121,26 @@ def test_lossless_is_exact():
 
 
 def test_hodbf_raises_naming_the_next_slice():
-    """HODBF, butterfly levels and complex input are the next slice."""
+    """HODBF, butterfly levels and complex input were refused until the
+    slice that ports them: each now plans HODBF fronts, and a complex
+    matrix is taken."""
     A = st.CSRMatrix(*(lambda a: (a.n, a.rowptr, a.colind, a.data))(
         poisson2d(8)))
     for comp, levels in ((st.CompressionType.HODBF, 0),
                          (st.CompressionType.HODLR, 2),
                          (st.CompressionType.ZFP_BLR_HODLR, 1)):
         s = st.SparseSolver(st.SPOptions(compression=comp,
-                                         hodlr_butterfly_levels=levels),
+                                         hodlr_butterfly_levels=levels,
+                                         compression_min_sep_size=8,
+                                         hodlr_min_sep_size=8),
                             device="cpu")
         s.set_csr_matrix(A)
-        with pytest.raises(NotImplementedError, match="helmholtz32"):
-            s.reorder(8, 8)
+        assert s.reorder(8, 8) == st.ReturnCode.SUCCESS
+        assert s.pdev.kinds()["hodbf"] > 0
     Ac = st.CSRMatrix(A.n, A.rowptr, A.colind, A.data.astype(complex))
-    with pytest.raises(NotImplementedError, match="helmholtz32"):
-        st.SparseSolver(device="cpu").set_csr_matrix(Ac)
+    s = st.SparseSolver(device="cpu")
+    s.set_csr_matrix(Ac)
+    assert s.A.data.dtype == np.complex128
 
 
 # ---------------------------------------------------------------------------

@@ -18,26 +18,40 @@ import torch
 
 torch.set_num_threads(1)
 
-_JDT = {torch.float32: jnp.float32, torch.float64: jnp.float64}
+_JDT = {torch.float32: jnp.float32, torch.float64: jnp.float64,
+        torch.complex64: jnp.complex64, torch.complex128: jnp.complex128}
+_KEYS = {}
 
 
 def jax_key(key):
     """The JAX key a port draw names: (seed, op, arg, ...) with "fold"
-    (fold_in) and "split" (the i-th key of split)."""
-    k = jax.random.PRNGKey(key[0])
-    for op, arg in zip(key[1::2], key[2::2]):
+    (fold_in), "split" with an int i (the i-th key of split) and "split"
+    with (n, i) (the i-th key of split(key, n)); keys are remembered, so
+    a long chain replays its prefix once."""
+    if key in _KEYS:
+        return _KEYS[key]
+    if len(key) == 1:
+        k = jax.random.PRNGKey(key[0])
+    else:
+        k = jax_key(key[:-2])
+        op, arg = key[-2:]
         if op == "fold":
             k = jax.random.fold_in(k, jnp.asarray(arg, jnp.int32))
+        elif isinstance(arg, tuple):
+            k = jax.random.split(k, arg[0])[arg[1]]
         else:
             k = jax.random.split(k)[arg]
+    _KEYS[key] = k
     return k
 
 
 def jax_draw(kind, shape, dtype, gen, key, high=None):
-    """``draws.draw`` answered with the JAX package's draw of ``key``."""
+    """``draws.draw`` answered with the JAX package's draw of ``key``
+    (a complex normal draw as the JAX package's butterfly ``_randn``)."""
     k = jax_key(key)
     if kind == "normal":
-        a = jax.random.normal(k, shape, _JDT[dtype])
+        from strumpack_tpu.structured.butterfly import _randn
+        a = _randn(k, shape, _JDT[dtype])
     elif kind == "randint":
         a = jax.random.randint(k, shape, 0, high)
     else:
@@ -49,9 +63,26 @@ def _np(v):
     return jax.tree_util.tree_map(np.asarray, v)
 
 
+def _fnode_numpy(f):
+    """A JAX HODBF factor node (``FNode``) as a dict of numpy arrays."""
+    if f is None:
+        return None
+    return dict(kind=f.kind, ml=f.ml, Dg=f.Dg, rg12=f.rg12, rg21=f.rg21,
+                lu=_np(f.lu), G12=_np(f.G12), G21=_np(f.G21),
+                W=(structured_numpy(f.W) if f.kind == "bf" else _np(f.W)),
+                f1=_fnode_numpy(f.f1), f2=_fnode_numpy(f.f2))
+
+
 def structured_numpy(H):
-    """A JAX HSSMatrix/HODLRMatrix as the attribute dict
+    """A JAX HSSMatrix/HODLRMatrix/HODBFMatrix as the attribute dict
     ``interop.structured_from_numpy`` takes."""
+    if hasattr(H, "bf12"):
+        return dict(kind="hodbf", m=H.m, t=H.t, mp=H.mp, L=H.L, r=H.r,
+                    rel_tol=H.rel_tol, bf_D=list(H.bf_D),
+                    bf_r=list(H.bf_r), D=np.asarray(H.D),
+                    bf12=[_np(b) for b in H.bf12],
+                    bf21=[_np(b) for b in H.bf21],
+                    froot=_fnode_numpy(getattr(H, "_froot", None)))
     kind = "hss" if hasattr(H, "Uleaf") else "hodlr"
     d = {k: v for k, v in H.__dict__.items()
          if k not in ("dtype", "_constrain", "_shard_level", "_factored")}
@@ -100,13 +131,15 @@ def solver_pair(A, dims, compression="NONE", tweak=None, **kw):
 
 BUCKET_FLAGS = ("blr", "tile", "max_rank", "adm_band", "blr_variant",
                 "lr_algo", "cb_comp", "cb_rank", "lossy", "hss", "hodlr",
-                "hss_leaf", "hss_rank", "hss_sample")
+                "hss_leaf", "hss_rank", "hss_sample", "hodbf", "bf_D", "bf_r",
+                "bf_direct", "bf_cutoff", "chunks")
 
 
 def assert_flags_identical(ref, port):
     """The plans identical array for array (``test_torch_plan``) and flag
     for flag: front types, BLR tiles and caps, compressed CBs, lossy
-    bits, HSS/HODLR leaves and ranks, the sampled buckets' ELL arrays."""
+    bits, HSS/HODLR leaves and ranks, HODBF butterfly depths, ranks and
+    direct factorizations, chunks, the sampled buckets' ELL arrays."""
     from test_torch_plan import assert_plans_identical
     assert_plans_identical(ref, port)
     for lr, lp in zip(ref.plan.levels, port.plan.levels):
@@ -121,7 +154,7 @@ def assert_flags_identical(ref, port):
                     np.testing.assert_array_equal(bp.samp[k], v, err_msg=k)
 
 
-def solve_on_jax_factors(ref, port, b):
+def solve_on_jax_factors(ref, port, b, dtype=torch.float64):
     """(port solution, JAX solution) of one multifrontal solve of the
     permuted b on the JAX package's factors, carried into the port."""
     from strumpack_tpu.frontal import numeric as sj_numeric
@@ -130,6 +163,6 @@ def solve_on_jax_factors(ref, port, b):
     bp = ref._transform_b(b)
     want = np.asarray(sj_numeric.solve(ref.fac, bp))
     fac = factors_from_numpy(port.pdev, jax_tree_numpy(ref.fac.tree),
-                             dtype=torch.float64)
+                             dtype=dtype)
     got = st_numeric.solve(fac, torch.from_numpy(np.asarray(bp))).numpy()
     return got, want
