@@ -50,7 +50,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     Poisson 100^3: sampled HSS fronts for separators >= 2048, BLR fronts
     with compressed CBs >= 256, bf16 fronts below; f32, preconditioned
     GMRES to 1e-6), the steady factor after update_matrix_values, peak
-    device memory, the device time by group;
+    device memory;
 14. hss64, hodlr64: Poisson 64^3 with HSS and HODLR fronts built from the
     dense F11 for separators >= 1024, f32, preconditioned GMRES to 1e-6;
 15. helmholtz32: bench.py's helmholtz32 configuration (complex Helmholtz
@@ -64,7 +64,18 @@ Phases, in order; any failure raises and the script exits non-zero:
 17. chunked64: exact64's problem with buckets above a 0.5 GB working set
     run in chunks (STRUMPACK_TPU_CHUNK_GB): factors against exact64's,
     peak device memory against exact64's and the model;
-18. one JSON line {"kernels": [...]}, then the last line
+18. dense16k: the structured dense facade on the Gauss kernel matrix
+    K + 2I of 16,384 2-D points (float32, 1.07 GB): HSS, HODLR, BLR at
+    leaf 128 (its tile LUs on K4) and 64 (on K2) and LOSSY, then HODBF,
+    LR and BUTTERFLY on its leading 2048/4096 blocks; build, factor and solve
+    seconds, rank and memory, mult and solve errors against the dense f64
+    product and solve (gates 100 x rel_tol; LOSSY's its int8 bound), K2
+    and K4 at the BLR runs' new shapes;
+19. kernel100k: examples/kernel_regression_100k.py's configuration
+    (100,000 points, matrix-free HSS), rel_err < 0.3 on 2000 points; the
+    ann and HODLR fits and the two-moons classifier at 8,192 points
+    (accuracy > 0.92);
+20. one JSON line {"kernels": [...]}, then the last line
     {"ok": true, "device": {...}}.
 
 The launch counters are set to 0 just before each solver phase factors
@@ -1484,6 +1495,279 @@ def complex_phases(torch, rng, runs, main_run, s64, profile="svd"):
 
 
 
+# ---------------------------------------------------------------------------
+# phases 18-19: the structured dense facade and kernel ridge regression
+# ---------------------------------------------------------------------------
+
+# dense16k: the facade's types at the size its users factor; HODBF, LR and
+# BUTTERFLY, bound by cuSOLVER's SVD, on a leading block: HODBF at 2048,
+# because at 4096 it took 429.6 s, 99.4% of it in SVDs (PERF.md, PR 8)
+DENSE_N = 16384
+DENSE_TYPES = (("HSS", 128), ("HODLR", 128), ("BLR", 128), ("BLR", 64),
+               ("LOSSY", 128))
+DENSE_SVD_TYPES = (("HODBF", 2048), ("LR", 4096), ("BUTTERFLY", 4096))
+# kernel100k: examples/kernel_regression_100k.py's configuration
+KERNEL_N = 100_000
+KERNEL_SMALL = 8192
+
+
+def gauss_matrix(torch, n, device, seed=0):
+    """The Gauss kernel matrix K + 2 I (h = 1) of n 2-D standard-normal
+    points from default_rng(seed), in recursive-PCA order (leaf 64),
+    float32 on ``device``; the points too."""
+    from strumpack_tpu_torch.kernel.kernel import (GaussKernel,
+                                                   recursive_pca_order)
+    P = np.random.default_rng(seed).standard_normal((n, 2))
+    P = P[recursive_pca_order(P)]
+    Pt = torch.tensor(P, dtype=torch.float32, device=device)
+    A = GaussKernel(h=1.0, lam=2.0, device=device).eval(Pt, Pt)
+    A.diagonal().add_(2.0)
+    return A
+
+
+def _sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _norm2(torch, E, iters=30):
+    """The spectral norm of a symmetric E by power iteration."""
+    v = torch.ones(E.shape[0], dtype=E.dtype, device=E.device)
+    for _ in range(iters):
+        w = E @ v
+        v = w / w.norm()
+    return float((E @ v).norm())
+
+
+def facade_case(torch, A, name, leaf, xv, Ax, b, x_ref, device, gate=True):
+    """One StructuredMatrix type on A: build, factor and solve seconds
+    (synchronised), rank, memory against the dense count, and the mult
+    and solve relative errors against the dense f64 product and solve.
+    Gates: both <= 100 x rel_tol; LOSSY's mult at the JAX test's 2e-2 and
+    its solve at the perturbation bound of its int8 storage
+    (||E||_2 / (2 - ||E||_2) with E = A - stored: K is positive
+    semidefinite, so A = K + 2 I has no eigenvalue below 2), plus f32
+    rounding, and the solve of its stored matrix within 1e-2."""
+    import strumpack_tpu_torch as st
+    opts = st.StructuredOptions(type=st.StructuredType[name], leaf_size=leaf)
+    tol = 100 * opts.rel_tol
+    label = f"{name}" + ("" if leaf == 128 else f"_leaf{leaf}")
+    n = A.shape[0]
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    S = st.construct_from_dense(A, opts, device=device)
+    _sync(torch, device)
+    rec = dict(type=name, leaf=leaf, n=n, build_s=time.perf_counter() - t0,
+               rank=S.rank(), memory=S.memory(), dense=n * n)
+    rec["mult_err"] = float((S.mult(xv).double() - Ax).norm() / Ax.norm())
+    if name not in ("BUTTERFLY", "LR"):
+        t0 = time.perf_counter()
+        S.factor()
+        _sync(torch, device)
+        rec["factor_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        x = S.solve(b)
+        _sync(torch, device)
+        rec["solve_s"] = time.perf_counter() - t0
+        check(tuple(x.shape) == (n,) and bool(torch.isfinite(x).all()),
+              f"dense16k {label}: finite solution of shape ({n},)")
+        rec["solve_err"] = float((x.double() - x_ref).norm() / x_ref.norm())
+    if name == "LOSSY":
+        E = (A - S._dense()[:n, :n]).double()
+        rec["stored_err_norm2"] = e2 = _norm2(torch, E)
+        rec["solve_bound"] = e2 / (2.0 - e2) + 1e-3
+        x_st = torch.linalg.solve(A.double() - E, b.double())
+        rec["solve_err_stored"] = float((x.double() - x_st).norm()
+                                        / x_st.norm())
+        del E, x_st
+        if gate:
+            check(rec["mult_err"] <= 2e-2, f"dense16k {label}: mult error "
+                  f"{rec['mult_err']:.3g} <= 2e-2")
+            check(rec["solve_err"] <= rec["solve_bound"],
+                  f"dense16k {label}: solve error {rec['solve_err']:.3g} "
+                  f"within the int8 bound {rec['solve_bound']:.3g}")
+            check(rec["solve_err_stored"] <= tol, f"dense16k {label}: "
+                  f"solve of the stored matrix {rec['solve_err_stored']:.3g}")
+    elif gate:
+        check(rec["mult_err"] <= tol, f"dense16k {label}: mult error "
+              f"{rec['mult_err']:.3g} <= {tol:.3g}")
+        if "solve_err" in rec:
+            check(rec["solve_err"] <= tol, f"dense16k {label}: solve error "
+                  f"{rec['solve_err']:.3g} <= {tol:.3g}")
+    print(f"dense16k {label}", json.dumps(rec), flush=True)
+    return rec, S
+
+
+def dense_phase(torch, rng, runs, k2_done, k4_done, device="cuda",
+                n=DENSE_N, types=DENSE_TYPES, svd_types=DENSE_SVD_TYPES):
+    """Phase 18, dense16k: the facade's types on the Gauss kernel matrix
+    (``gauss_matrix``) at ``n`` (HSS, HODLR, BLR at leaf 128 and 64,
+    LOSSY) and on its leading blocks (``svd_types``: HODBF, LR; BUTTERFLY
+    mult only, gated on the block's off-diagonal quarter, the HODBF role:
+    the 2 I of the diagonal blocks needs full rank in its leaves), the
+    SVDs of HODBF and BUTTERFLY timed by events.  The counters are zeroed before
+    the BLR runs and read after them; then K2 and K4 at every shape they
+    launched that phase 3 did not check.  Adds the record to ``runs``;
+    returns the new K2 and K4 checks."""
+    from strumpack_tpu_torch.ops import panel_lu as PP
+    t0 = time.perf_counter()
+    A = gauss_matrix(torch, n, device)
+    _sync(torch, device)
+    g = np.random.default_rng(1)
+    xv = torch.tensor(g.standard_normal(n), dtype=torch.float32,
+                      device=device)
+    b = torch.tensor(g.standard_normal(n), dtype=torch.float32,
+                     device=device)
+    A64 = A.double()
+    Ax = A64 @ xv.double()
+    x_ref = torch.linalg.solve(A64, b.double())
+    del A64
+    _sync(torch, device)
+    print(f"dense16k: K + 2I of {n} points, {A.numel() * 4 / 1e9:.2f} GB; "
+          f"the f64 references {time.perf_counter() - t0:.2f} s", flush=True)
+    cases = []
+    blr_tiles = set()
+    reset_counts()
+    for name, leaf in types:
+        before = read_counts()
+        rec, S = facade_case(torch, A, name, leaf, xv, Ax, b, x_ref, device)
+        after = read_counts()
+        rec["launches"] = {k: after[k] - before[k] for k in _wrappers()}
+        if name == "BLR":
+            blr_tiles.add(S.t)
+            rec["tiles"] = S.t
+            key = "small_lu" if S.t <= 64 else "panel_lu"
+            # the wrappers count launches of the kernel, not of the plain
+            # versions a CPU rehearsal runs
+            check(device != "cuda" or rec["launches"][key] == S.mpad // S.t,
+                  f"dense16k BLR at tile {S.t}: {key} launched once a "
+                  f"diagonal tile ({rec['launches'][key]})")
+        cases.append(rec)
+        del S
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    counts = read_counts()
+    del Ax, x_ref, xv, b
+    # the SVD-bound types on leading blocks
+    for name, m in svd_types:
+        Am = A[:m, :m].contiguous()
+        xv, b = (torch.tensor(g.standard_normal(m), dtype=torch.float32,
+                              device=device) for _ in range(2))
+        Ax = Am.double() @ xv.double()
+        x_ref = torch.linalg.solve(Am.double(), b.double())
+        timed = {}
+
+        def run(name=name):
+            timed["out"] = facade_case(torch, Am, name, 128, xv, Ax, b,
+                                       x_ref, device,
+                                       gate=name != "BUTTERFLY")
+        if device == "cuda" and name != "LR":
+            timed["svd"] = svd_events(torch, run)
+        else:
+            run()
+        rec, S = timed["out"]
+        if "svd" in timed:
+            rec["svd"] = timed["svd"]
+        if name == "BUTTERFLY":
+            h = m // 2
+            B = Am[:h, h:].contiguous()
+            rec["offdiag_block"] = facade_case(
+                torch, B, name, 128, xv[h:], B.double() @ xv[h:].double(),
+                None, None, device)[0]
+        cases.append(rec)
+        del S, Am
+    del A
+    # K2 and K4 at the BLR runs' tile-LU shapes not checked in phase 3
+    k2_new, k4_new = [], []
+    if device == "cuda":
+        for t in sorted(blr_tiles):
+            if t <= 64 and (1, t, t, "float32", True) not in k2_done:
+                k2_new.append(check_k2(torch, rng, 1, t, t, "float32"))
+            for jb in range(0, t if t > 64 else 0, PP.PANEL_W):
+                w = min(PP.PANEL_W, t - jb)
+                if (1, t, w, jb) not in k4_done:
+                    k4_new.append(check_k4(
+                        torch, rng, 1, t, w, jb, "float32",
+                        PP.design(t, w, 4, jb)))
+    runs["dense16k"] = dict(phase="dense16k", launches=counts, cases=cases)
+    return k2_new, k4_new
+
+
+def two_moons(n, seed):
+    """``tests/test_structured.py``'s two moons: n points a moon, noise
+    0.1, shuffled; labels 0 and 1."""
+    rng = np.random.default_rng(seed)
+    theta = rng.uniform(0, np.pi, n)
+    X1 = np.stack([np.cos(theta), np.sin(theta)], 1) \
+        + 0.1 * rng.standard_normal((n, 2))
+    X2 = np.stack([1 - np.cos(theta), 0.5 - np.sin(theta)], 1) \
+        + 0.1 * rng.standard_normal((n, 2))
+    X = np.concatenate([X1, X2])
+    y = np.concatenate([np.zeros(n), np.ones(n)])
+    idx = rng.permutation(2 * n)
+    return X[idx], y[idx]
+
+
+def kernel_phase(torch, runs, device="cuda", n=KERNEL_N, small=KERNEL_SMALL):
+    """Phase 19, kernel100k: examples/kernel_regression_100k.py through
+    the port (n points, Gauss h = 1, lambda = 2, matrix-free HSS at leaf
+    256, rank 128, tolerance 1e-5, cluster leaf 128; predict 2000), gate
+    rel_err < 0.3; then at ``small`` points the ann fit, the HODLR fit
+    and the classifier on two moons (``small`` training, 2048 test
+    points), gate accuracy > 0.92.  The fit's host seconds (clustering,
+    kNN) print apart from the device steps."""
+    from strumpack_tpu_torch.kernel.kernel import (GaussKernel,
+                                                   KernelRegressionClassifier)
+    reset_counts()
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((n, 2))
+    y = np.sin(X[:, 0]) + 0.5 * np.cos(2.0 * X[:, 1]) \
+        + 0.05 * rng.standard_normal(n)
+    recs = {}
+
+    def fit(label, fn, Xf, yf):
+        k = GaussKernel(h=1.0, lam=2.0, device=device)
+        t0 = time.perf_counter()
+        fn(k, Xf, yf)
+        _sync(torch, device)
+        t_fit = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p = k.predict(X[:2000])
+        t_pred = time.perf_counter() - t0
+        rel = float(np.linalg.norm(p - y[:2000]) / np.linalg.norm(y[:2000]))
+        rec = dict(n=len(Xf), fit_s=t_fit, fit_steps_s=dict(k.times),
+                   predict_2000_s=t_pred, rel_err=rel,
+                   memory_bytes=k._M.memory() * k._M.D.element_size(),
+                   dense_bytes=len(Xf) ** 2 * k._M.D.element_size(),
+                   max_rank=k._M.max_rank(), weights_device=str(
+                       k._weights.device))
+        print(f"kernel100k {label}", json.dumps(rec), flush=True)
+        check(np.isfinite(p).all() and rel < 0.3,
+              f"kernel100k {label}: rel_err {rel:.3g} < 0.3")
+        recs[label] = rec
+    fit("hss_matrix_free", lambda k, X_, y_: k._fit(
+        X_, y_, "hss", leaf_size=256, max_rank=128, rel_tol=1e-5,
+        cluster_leaf=128, matrix_free=True), X, y)
+    fit("hss_ann", lambda k, X_, y_: k.fit_HSS(X_, y_, compression="ann"),
+        X[:small], y[:small])
+    fit("hodlr", lambda k, X_, y_: k.fit_HODLR(X_, y_), X[:small], y[:small])
+    Xm, ym = two_moons((small + 2048) // 2, seed=5)
+    clf = KernelRegressionClassifier(h=0.3, lam=1.0, fmt="hss", leaf_size=64,
+                                     rel_tol=1e-6, device=device)
+    t0 = time.perf_counter()
+    clf.fit(Xm[:small], ym[:small])
+    _sync(torch, device)
+    t_fit = time.perf_counter() - t0
+    acc = clf.score(Xm[small:], ym[small:])
+    recs["classifier"] = dict(n=small, test=len(Xm) - small, fit_s=t_fit,
+                              fit_steps_s=dict(clf._k.times), accuracy=acc)
+    print("kernel100k classifier", json.dumps(recs["classifier"]),
+          flush=True)
+    check(acc > 0.92, f"kernel100k classifier: accuracy {acc:.3f} > 0.92")
+    runs["kernel100k"] = dict(phase="kernel100k", launches=read_counts(),
+                              fits=recs)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1689,14 +1973,14 @@ def main():
     phase("12 df32")
     general_run("df32", scaled_tol=1e-10)
 
-    def struct_run(name, **kw):
+    def struct_run(name, profile="factor", **kw):
         A, s, t = struct.pop(name)
         torch.cuda.empty_cache()
         # bench.py's gate (ERROR_TOL 1e2 times rel_tol), its right-hand
         # side from default_rng(0)
         rec = run_solver(torch, name, A, s, t, seed=0, memory=True,
                          scaled_tol=1e2 * s.opts.rel_tol, steady=1,
-                         refresh=True, profile="factor", **kw)
+                         refresh=True, profile=profile, **kw)
         print(f"{name}: peak {rec['peak_bytes']} bytes against the model's "
               f"{rec['factor_peak_bytes_model']}; factor bytes "
               f"{rec['factor_bytes_effective']} against dense "
@@ -1706,7 +1990,9 @@ def main():
         torch.cuda.empty_cache()
 
     phase("13 hodlr100")
-    struct_run("hodlr100", launched=tuple(_wrappers()))
+    # no profile: reading its 908k-kernel trace took ~2 minutes of the
+    # run's limit (tools/structured_cells.py hodlr100 still profiles it)
+    struct_run("hodlr100", profile=None, launched=tuple(_wrappers()))
 
     phase("14 hss64, hodlr64")
     for name in ("hss64", "hodlr64"):
@@ -1716,7 +2002,18 @@ def main():
     del A64, s64
     torch.cuda.empty_cache()
 
-    phase("18 summary")
+    phase("18 dense16k")
+    k2_dn, k4_dn = dense_phase(torch, rng, runs, k2_done | {
+        (r["nf"], r["p"], r["s"], r["dtype"], r["pivot"]) for r in k2_st},
+        k4_done | {(r["nf"], r["p"], r["w"], r["row0"]) for r in k4_st
+                   if r["dtype"] == "float32"})
+    torch.cuda.empty_cache()
+
+    phase("19 kernel100k")
+    kernel_phase(torch, runs)
+    torch.cuda.empty_cache()
+
+    phase("20 summary")
     print("K4-blocked", json.dumps(blocked))
     print("K3-general", json.dumps(k3_gen))
     print("K2-general", json.dumps(k2_gen))
@@ -1725,6 +2022,8 @@ def main():
     print("K2-structured", json.dumps(k2_st))
     print("K4-structured", json.dumps(k4_st))
     print("K1-complex", json.dumps(k1_cx))
+    print("K2-dense", json.dumps(k2_dn))
+    print("K4-dense", json.dumps(k4_dn))
     print("ptxas", json.dumps(ptxas))
 
     def sums(recs):
@@ -1738,11 +2037,12 @@ def main():
         return out
 
     def entry(name, src, replaces, run, key, recs, general=(),
-              structured=(), complex_=()):
+              structured=(), complex_=(), dense=()):
         """One kernel's line: launches from ``run`` (and by phase), the
         sums over its main checks ``recs``, and its checks at the
-        general-input, the rank-structured and the complex phases' shapes
-        summed apart (the library yardstick where it was timed)."""
+        general-input, the rank-structured, the complex and the dense
+        facade phases' shapes summed apart (the library yardstick where it
+        was timed)."""
         gen = sums(general)
         return dict(
             name=name, route="cuda", source=src, replaces=replaces,
@@ -1751,7 +2051,7 @@ def main():
                                for n, r in runs.items()},
             max_abs_err=max(r["max_abs_err"]
                             for r in (*recs, *general, *structured,
-                                      *complex_)),
+                                      *complex_, *dense)),
             ms=sum(r["ms"] for r in recs),
             plain_ms=sum(r["plain_ms"] for r in recs),
             bound_ms=sum(r["bound_ms"] for r in recs),
@@ -1760,7 +2060,8 @@ def main():
             library_ms=(None if any(r["library_ms"] is None for r in recs)
                         else sum(r["library_ms"] for r in recs)),
             general_shapes=gen, structured_shapes=sums(structured),
-            complex_shapes=sums(complex_), shapes=recs)
+            complex_shapes=sums(complex_), dense_shapes=sums(dense),
+            shapes=recs)
 
     def k3_entry(e):
         # the kernel alone beside the wrapper + Schur GEMM of ``ms``
@@ -1778,10 +2079,10 @@ def main():
                        "front_lu_cross", k3, k3_gen, k3_st)),
         entry("small_lu", "strumpack_tpu_torch/csrc/small_lu.cu",
               "strumpack_tpu/ops/pallas_lu.py:102", blr_run, "small_lu", k2,
-              k2_gen, k2_st),
+              k2_gen, k2_st, dense=k2_dn),
         entry("panel_lu", "strumpack_tpu_torch/csrc/panel_lu.cu",
               "strumpack_tpu/ops/pallas_panel_lu.py:110", blr_run,
-              "panel_lu", k4, structured=k4_st),
+              "panel_lu", k4, structured=k4_st, dense=k4_dn),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

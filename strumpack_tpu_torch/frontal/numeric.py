@@ -1346,27 +1346,45 @@ def factor_peak_bytes(pdev, itemsize: int) -> int:
 
 
 def factorize(pdev: PlanDev, Avals, thresh=0.0, dtype=None, blr_tol=1e-4,
-              pivoting=True, spd=False, hss_tol=1e-4) -> Factors:
+              pivoting=True, spd=False, hss_tol=1e-4,
+              verbose=False) -> Factors:
     """Numeric factorization of the permuted matrix values ``Avals``
     (numpy or tensor) on ``pdev.device``; ``blr_tol`` is the BLR tiles'
     (and compressed CBs') relative compression tolerance, ``hss_tol`` the
     HSS/HODLR/HODBF fronts'; ``spd`` factors the dense fronts by partial
-    Cholesky (``thresh`` and ``pivoting`` then do not apply)."""
+    Cholesky (``thresh`` and ``pivoting`` then do not apply).
+
+    A peak model above the device budget does not refuse: the JAX package
+    then factors in per-level-group programs that free each group's
+    working set (numeric.py:1654-1660, the FrontGPU.cpp:490-496 role), as
+    the eager sweep here always does.  Only a real out-of-memory error
+    raises ``MemoryError``, naming the model's peak and the budget."""
     use_full_fp32_matmul()
     Avals = torch.as_tensor(np.asarray(Avals) if not torch.is_tensor(Avals)
                             else Avals, device=pdev.device)
     if dtype is not None:
         Avals = Avals.to(dtype)
+    peak = budget = None
     if pdev.device.type == "cuda":
-        # the model counts a chunked bucket's chunk: only a plan that
-        # chunking does not bring under the budget is refused
         budget = hbm_budget_bytes(pdev.device)
         peak = factor_peak_bytes(pdev, Avals.element_size())
-        if peak > budget:
-            raise MemoryError(f"factorization needs ~{peak / 1e9:.1f} GB "
-                              f"(model), device has {budget / 1e9:.1f} GB")
-    tree = _factor_impl(pdev, Avals, thresh, blr_tol, pivoting, spd,
-                        hss_tol)
+        if verbose and peak > 0.85 * budget:
+            print(f"# factorize: model ~{peak / 1e9:.1f} GB passes 0.85 x "
+                  f"the {budget / 1e9:.1f} GB budget; level by level")
+    tree = None
+    try:
+        tree = _factor_impl(pdev, Avals, thresh, blr_tol, pivoting, spd,
+                            hss_tol)
+    except torch.cuda.OutOfMemoryError:
+        pass
+    if tree is None:
+        # raised outside the handler: its traceback (and with it the
+        # partial tree) is gone, so the cache can return the blocks
+        torch.cuda.empty_cache()
+        raise MemoryError(
+            f"factorization ran out of device memory: the model's peak "
+            f"~{(peak or 0) / 1e9:.1f} GB, the budget "
+            f"{(budget or 0) / 1e9:.1f} GB")
     return Factors(pdev, Avals.dtype, tree)
 
 

@@ -109,14 +109,86 @@ def structured_from_numpy(d, device):
               "_ulv", "_root") if hss else
              ("D", "P12", "Q12", "P21", "Q21", "_leaf", "_smw"))
     for k in names:
-        setattr(H, k, _tree(d[k], device, one))
+        if k in d:                      # the factors only once factored
+            setattr(H, k, _tree(d[k], device, one))
     if not hss:                         # [nf, 1] per level -> [nf]
         H.ranks = [_tensor(np.reshape(r, -1), device)
                    for r in d["rank_arrays"]]
     H.nf = H.D.shape[0]
     H.dtype = H.D.dtype
-    H._factored = True
+    H._factored = ("_ulv" if hss else "_smw") in d
     return H
+
+
+def facade_from_numpy(d, device):
+    """A JAX ``StructuredMatrix`` (``structured/structured.py``) as the
+    port's wrapper of the same type.  ``d`` holds ``type`` (the Type
+    name), ``rows``, ``cols`` and the wrapper's state as numpy: ``h``
+    (a ``structured_from_numpy`` dict) for HSS, HODLR and HODBF; ``bf``
+    (the ButterflyMatrix's attributes, its butterfly ``bf`` a dict of
+    arrays) for BUTTERFLY; ``U``, ``V`` for LR; ``q``, ``scale``, ``mp``,
+    ``np_`` and ``lu`` (packed LU and applied-form permutation, or None)
+    for LOSSY; ``t``, ``mpad``, ``r``, ``rel_tol``, ``Ap``, ``tiles``
+    (diagonal tiles, U, V), ``ranks`` and ``fac`` (the 10-tuple of
+    ``blr_factor_bucket``, or None) for BLR.  Each object gains the front
+    axis the port's wrappers hold."""
+    from .structured import structured as S
+    from .structured.butterfly import ButterflyMatrix
+    kind = S.Type[d["type"]]
+    cls = {S.Type.HSS: S._HSSWrap, S.Type.HODLR: S._HODLRWrap,
+           S.Type.HODBF: S._HODBFWrap, S.Type.BLR: S._BLRDense,
+           S.Type.BUTTERFLY: S._ButterflyWrap, S.Type.LR: S._LRMatrix,
+           S.Type.LOSSY: S._LossyMatrix}[kind]
+    w = cls.__new__(cls)
+    w.rows, w.cols = d["rows"], d["cols"]
+    if kind in (S.Type.HSS, S.Type.HODLR, S.Type.HODBF):
+        w.h = structured_from_numpy(d["h"], device)
+    elif kind == S.Type.BUTTERFLY:
+        b = d["bf"]
+        w.bf = ButterflyMatrix.__new__(ButterflyMatrix)
+        for k in ("m", "n", "D", "h", "b", "r", "rel_tol"):
+            setattr(w.bf, k, b[k])
+        w.bf.bf = _tree(b["bf"], device, batch=True)
+        w.bf.ranks = (w.bf.bf["rkU"], w.bf.bf["rkV"])
+        w.bf.dtype = w.bf.bf["B"].dtype
+    elif kind == S.Type.LR:
+        w.U, w.V = _tensor(d["U"], device), _tensor(d["V"], device)
+    elif kind == S.Type.LOSSY:
+        w.q = torch.as_tensor(np.array(d["q"]), device=device)
+        w.scale = _tensor(d["scale"], device)
+        w.mp, w.np_ = d["mp"], d["np_"]
+        w._lu = None if d["lu"] is None else _tree(d["lu"], device)
+    else:
+        w.t, w.mpad, w.r = d["t"], d["mpad"], d["r"]
+        w.opts = S.StructuredOptions(S.Type.BLR, rel_tol=d["rel_tol"],
+                                     leaf_size=d["t"], max_rank=d["r"])
+        w.Ap = _tensor(d["Ap"], device)
+        w._tiles = _tree(d["tiles"], device)
+        w._ranks = _tensor(d["ranks"], device)
+        w._fac = None if d["fac"] is None else _tree(d["fac"], device)
+    return w
+
+
+def kernel_from_numpy(d, device):
+    """A fitted JAX ``Kernel`` (``kernel/kernel.py``) as the port's on
+    ``device``: ``d`` holds ``cls`` (the class name), ``h``, ``lam``
+    (``p`` for ANOVA, ``K`` for a DenseKernel) and the fitted state as
+    numpy, ``Xtrain``, ``weights``, ``order`` and ``M`` (a
+    ``structured_from_numpy`` dict)."""
+    from .kernel import kernel as KM
+    k = getattr(KM, d["cls"]).__new__(getattr(KM, d["cls"]))
+    k.h, k.lam = d["h"], d["lam"]
+    k.device = torch.device(device)
+    k.times = {}
+    if "p" in d:
+        k.p = d["p"]
+    if "K" in d:
+        k.K = _tensor(d["K"], device)
+    k._Xtrain = _tensor(d["Xtrain"], device)
+    k._weights = _tensor(d["weights"], device)
+    k._order = _tensor(d["order"], device)
+    k._M = structured_from_numpy(d["M"], device)
+    return k
 
 
 def blrcb_from_numpy(diag, U, V, u, t, device):

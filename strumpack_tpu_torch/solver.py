@@ -330,7 +330,8 @@ class SparseSolver:
                                      dtype=fdt, blr_tol=opts.blr.rel_tol,
                                      pivoting=opts.pivoting,
                                      spd=opts.positive_definite,
-                                     hss_tol=opts.hss.rel_tol)
+                                     hss_tol=opts.hss.rel_tol,
+                                     verbose=opts.verbose)
 
         self.factor_passes = 0
         # the old factors go before the new ones are built: a refactor

@@ -200,5 +200,13 @@ class HODLRMatrix:
             x = self._apply_corr(li, x)
         return x[:, :m]
 
+    def memory(self) -> int:
+        """Stored entries of one front's compressed form, counted as the
+        JAX package counts them (hodlr.py:285-289): the leaf blocks and
+        every level's P12, Q12, P21 and Q21 at rank r, padding included."""
+        tot = sum(a.numel() for a in [self.D] + self.P12 + self.Q12
+                  + self.P21 + self.Q21)
+        return int(tot // self.nf)
+
     def max_rank(self) -> int:
         return max((int(r.max()) for r in self.ranks), default=0)

@@ -347,6 +347,15 @@ class HSSMatrix:
         return y.reshape(nf, mp, k)[:, :m]
 
     # ------------------------------------------------------------------
+    def memory(self) -> int:
+        """Stored entries of one front's compressed form, counted as the
+        JAX package counts them (hss.py:313-318): D, the leaf bases and
+        every level's Ru, Rv, B12 and B21, padding to the power-of-two
+        tree and to r included."""
+        tot = sum(a.numel() for a in [self.D, self.Uleaf, self.Vleaf]
+                  + self.Ru + self.Rv + self.B12 + self.B21)
+        return int(tot // self.nf)
+
     def max_rank(self) -> int:
         rU, rV = self.ranks[0]
         return int(max(int(rU.max()), int(rV.max())))

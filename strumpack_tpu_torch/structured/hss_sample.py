@@ -11,12 +11,14 @@ The adaptive d0 + k dd loop of the reference is one oversampled sketch
 with masked ranks, and the interpolative decomposition is a greedy
 row-pivoted orthogonalization (the ``geqp3tol`` role).  The result fills
 the generators of ``hss.HSSMatrix`` and uses its ULV factorization and
-solve.
+solve.  ``hss_from_neighbors`` builds the same generators for a
+symmetric kernel matrix from its approximate nearest neighbours.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from . import draws
@@ -179,4 +181,114 @@ def hss_from_sampling(mult, elem, m, nf, leaf_size=64, max_rank=32,
                              torch.cat([RredC[:, i1], RredC[:, i2]], dim=2))
         RredR = torch.matmul(Xn.conj().transpose(-1, -2),
                              torch.cat([RredR[:, i1], RredR[:, i2]], dim=2))
+    return H
+
+
+def _node_neighbor_columns(ann, m, t, L, c, seed=0):
+    """Per-level candidate column sets of the neighbour-built HSS, from an
+    approximate-kNN graph (host numpy, as
+    ``strumpack_tpu/structured/hss_sample.py:204``, the same
+    ``default_rng(seed)`` draws): for each node of each level, the nearest
+    neighbours of its members that lie outside it (nearest first,
+    round-robin over the members), filled with random far-field columns up
+    to width ``c``.  Returns {level: [n_nodes, c] int32} for levels L
+    (the leaves) .. 1."""
+    rng = np.random.default_rng(seed)
+    ann = np.asarray(ann)
+    out = {}
+    for lev in range(L, 0, -1):
+        w = t * 2 ** (L - lev)
+        n_nodes = 2 ** lev
+        cols = np.zeros((n_nodes, c), np.int32)
+        for h in range(n_nodes):
+            lo, hi = h * w, min((h + 1) * w, m)
+            if lo >= m:
+                cols[h] = rng.integers(0, m, c)
+                continue
+            nb = ann[lo:hi].T.ravel()          # nearest-first round-robin
+            nb = nb[(nb >= 0) & ((nb < lo) | (nb >= hi))]
+            # first occurrences keep the nearest-first order
+            _, first = np.unique(nb, return_index=True)
+            nb = nb[np.sort(first)][:c]
+            k = len(nb)
+            cols[h, :k] = nb
+            if k < c:
+                # far-field fill: random columns outside the node
+                fill = rng.integers(0, max(m - (hi - lo), 1), c - k)
+                fill = np.where(fill >= lo, fill + (hi - lo), fill)
+                cols[h, k:] = np.minimum(fill, m - 1)
+        out[lev] = cols
+    return out
+
+
+def hss_from_neighbors(elem, ann, m, leaf_size=64, max_rank=32, n_extra=16,
+                       rel_tol=1e-6, dtype=torch.float32, seed=0,
+                       device=None) -> HSSMatrix:
+    """The HSS form (``nf`` = 1) of a symmetric kernel matrix from its
+    approximate nearest neighbours (the reference's neighbour-search
+    compression, HSSMatrix.compress_kernel.hpp;
+    ``strumpack_tpu/structured/hss_sample.py:240``): each node's
+    interpolative basis is the ID of its rows against its candidate
+    columns (``_node_neighbor_columns``), no products and no sketch.
+
+    ``elem(I, J)``: A[0, I, J] for index tensors [1, ...] (A real
+    symmetric, K(x, y) + lam I); ``ann [m, k]``: the kNN ids in the
+    clustered point order.  The V side equals the U side by symmetry."""
+    t = int(leaf_size)
+    mp, L = _pad_pow2(m, t)
+    r = int(min(max_rank, t))
+    c = max(2 * r, 32) + int(n_extra)
+    cand = _node_neighbor_columns(ann, m, t, L, c, seed=seed)
+    dev = torch.device("cpu" if device is None else device)
+    tol = rel_tol
+    nl = 2 ** L
+    gidx = torch.arange(nl * t, device=dev).reshape(nl, t)
+    leaf_idx = torch.clamp(gidx, max=m - 1)[None]            # [1, nl, t]
+    in_range = gidx < m
+
+    D = elem(leaf_idx[..., :, None], leaf_idx[..., None, :]).to(dtype)
+    D = torch.where(in_range[:, :, None] & in_range[:, None, :], D,
+                    torch.eye(t, dtype=dtype, device=dev))
+    C0 = torch.as_tensor(cand[L], device=dev).long()[None]
+    F = elem(leaf_idx[..., :, None], C0[..., None, :]).to(dtype)
+    F = torch.where(in_range[:, :, None], F, 0)
+    X, Jl, rks = _id_rows(F[0], tol, r)
+    Jg = torch.gather(leaf_idx[0], 1, Jl)                   # [nl, r]
+
+    H = HSSMatrix.__new__(HSSMatrix)
+    H.nf, H.m, H.t, H.mp, H.L, H.r = 1, m, t, mp, L, r
+    H.rel_tol = rel_tol
+    H.dtype = dtype
+    H._factored = False
+    H.D = D
+    H.Uleaf = X[None]
+    H.Vleaf = X.conj()[None]
+    H.ranks = [(rks[None], rks[None])]
+    H.Ru, H.Rv, H.B12, H.B21 = [], [], [], []
+    Kg = Jg
+    rk = rks
+    for lev in range(L - 1, -1, -1):
+        half = 2 ** lev
+        i1 = 2 * torch.arange(half, device=dev)
+        i2 = i1 + 1
+        H.B12.append(elem(Jg[i1][None, :, :, None],
+                          Kg[i2][None, :, None, :]).to(dtype))
+        H.B21.append(elem(Jg[i2][None, :, :, None],
+                          Kg[i1][None, :, None, :]).to(dtype))
+        if lev == 0:
+            break
+        rows2 = torch.cat([Jg[i1], Jg[i2]], dim=1)            # [half, 2r]
+        # rows beyond a child's achieved rank are meaningless selections:
+        # zeroed, the parent ID never picks them
+        ar = torch.arange(r, device=dev)[None, :]
+        rmask2 = torch.cat([ar < rk[i1][:, None], ar < rk[i2][:, None]],
+                           dim=1)
+        Cp = torch.as_tensor(cand[lev], device=dev).long()
+        Fp = elem(rows2[None, :, :, None], Cp[None, :, None, :]).to(dtype)
+        Fp = torch.where(rmask2[:, :, None], Fp[0], 0)
+        Xn, Jl2, rk = _id_rows(Fp, tol, r)
+        H.Ru.append(Xn[None])
+        H.Rv.append(Xn.conj()[None])
+        Jg = torch.gather(rows2, 1, Jl2)
+        Kg = Jg
     return H

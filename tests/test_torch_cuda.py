@@ -672,3 +672,95 @@ def test_chunked_exact_solve(cuda_device, monkeypatch):
         xs[cap] = x
     np.testing.assert_allclose(xs["0.001"], xs["100"], rtol=0,
                                atol=1e-12 * np.abs(xs["100"]).max())
+
+
+def _gauss_blr(n, device):
+    """K + 2 I of n 2-D standard-normal points (h = 1), float32."""
+    P = np.random.default_rng(0).standard_normal((n, 2))
+    K = np.exp(-((P[:, None] - P[None]) ** 2).sum(-1) / 2.0) + 2 * np.eye(n)
+    return torch.tensor(K, dtype=torch.float32, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf", [128, 64])
+def test_blr_facade_kernels_match_plain(cuda_device, leaf, monkeypatch):
+    """The dense BLR facade at n = 1024: tiles of 128 factor their
+    diagonal tiles by the blocked LU over K4, tiles of 64 by K2, once a
+    tile; the factors equal those of the same facade over the plain
+    versions bit for bit, and the solve meets the tolerance."""
+    from strumpack_tpu_torch.structured import structured as S
+    A = _gauss_blr(1024, cuda_device)
+    opts = S.StructuredOptions(type="blr", leaf_size=leaf)
+    Sk = S.construct_from_dense(A, opts)
+    k2, k4 = FL.factor_bucket.launches, PP.panel_lu.launches
+    Sk.factor()
+    n2, n4 = FL.factor_bucket.launches - k2, PP.panel_lu.launches - k4
+    nt = 1024 // Sk.t
+    assert Sk.t == leaf
+    assert (n2, n4) == ((0, nt) if leaf == 128 else (nt, 0))
+    monkeypatch.setattr(FL, "factor_bucket", FL.factor_bucket_plain)
+    monkeypatch.setattr(PP, "panel_lu", PP.panel_lu_plain)
+    Sp = S.construct_from_dense(A, opts)
+    Sp.factor()
+    assert torch.equal(Sk._fac[0], Sp._fac[0])
+    assert torch.equal(Sk._fac[1], Sp._fac[1])
+    b = torch.randn(1024, generator=torch.Generator().manual_seed(1)).to(
+        cuda_device)
+    x = Sk.solve(b)
+    want = torch.linalg.solve(A.double(), b.double())
+    assert float((x.double() - want).norm() / want.norm()) < 1e-2
+
+
+@pytest.mark.cuda
+def test_facade_and_kernels_default_to_cuda(cuda_device):
+    """Without ``device`` the facade's constructors and the kernels build
+    on the card; a kernel fit keeps its state there."""
+    import strumpack_tpu_torch as st
+    A = _gauss_blr(256, cuda_device).cpu().numpy()
+    opts = st.StructuredOptions(type=st.StructuredType.HSS, leaf_size=32)
+    assert st.construct_from_dense(A, opts).h.D.device.type == "cuda"
+    At = torch.from_numpy(A).double().to(cuda_device)
+    S = st.construct_matrix_free(lambda X, trans: At @ X, 256, opts)
+    assert S.h.D.device.type == "cuda"
+    S = st.construct_from_elements(lambda i, j: A[i, j], 256, 256,
+                                   st.StructuredOptions(leaf_size=32))
+    assert S.Ap.device.type == "cuda"
+    P = np.random.default_rng(2).standard_normal((600, 2))
+    k = st.GaussKernel(h=1.0, lam=1.0)
+    k.fit_HSS(P, np.sin(P[:, 0]), leaf_size=64, matrix_free=True)
+    assert k.device.type == "cuda"
+    for t in (k._Xtrain, k._weights, k._order, k._M.D):
+        assert t.device.type == "cuda"
+    assert st.KernelRegressionClassifier().device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_factor_runs_past_the_memory_model(cuda_device, monkeypatch):
+    """With STRUMPACK_TPU_HBM_GB below exact32's peak model the port
+    factors anyway, as the JAX package does in split mode, and its
+    factors equal those of a run without the variable."""
+    import strumpack_tpu_torch as st
+    from strumpack_tpu_torch.frontal import numeric
+    from strumpack_tpu_torch.sparse.gen import poisson3d
+    A = poisson3d(32)
+
+    def factored():
+        s = st.SparseSolver(st.SPOptions(factor_dtype="float32",
+                                         refine_dtype="float32",
+                                         rel_tol=1e-5, nd_leaf=16))
+        s.set_csr_matrix(A)
+        s.reorder(32, 32, 32)
+        assert s.factor() == st.ReturnCode.SUCCESS
+        return s
+    ref = factored()
+    model = numeric.factor_peak_bytes(ref.pdev, 4)
+    monkeypatch.setenv("STRUMPACK_TPU_HBM_GB", str(0.5 * model / 1e9))
+    assert numeric.hbm_budget_bytes(cuda_device) < model
+    s = factored()
+    for name in ("lu", "perm", "L21", "U12"):
+        assert ref.fac.tree[name].keys() == s.fac.tree[name].keys()
+        for key, a in ref.fac.tree[name].items():
+            assert torch.equal(a, s.fac.tree[name][key]), (name, key)
+    b = A.spmv(np.random.default_rng(3).standard_normal(A.n))
+    x, rc = s.solve(b)
+    assert rc == st.ReturnCode.SUCCESS

@@ -36,7 +36,8 @@ def test_package_run_imports_no_jax():
     double float), the rank-structured fronts (HSS, sampled HSS, HODLR,
     the ZFP_BLR_HODLR composite with compressed CBs and ACA tiles), and
     complex input (native complex128 and complex_via_real) with HODBF
-    fronts: no jax* and no strumpack_tpu.* module may appear in
+    fronts, every structured facade type and kernel fits (dense, sketch
+    and ann): no jax* and no strumpack_tpu.* module may appear in
     sys.modules."""
     code = (
         "import sys, numpy as np\n"
@@ -98,6 +99,20 @@ def test_package_run_imports_no_jax():
         "    assert s.pdev.kinds()['hodbf'] > 0\n"
         "    x, rc = s.solve(A.spmv(np.ones(A.n, A.data.dtype)))\n"
         "    assert rc == st.ReturnCode.SUCCESS and x.dtype == A.data.dtype\n"
+        "M = np.random.default_rng(0).standard_normal((96, 96)) + 96 * np.eye(96)\n"
+        "for t in st.StructuredType:\n"
+        "    S = st.construct_from_dense(M, st.StructuredOptions(\n"
+        "        type=t, leaf_size=16, rel_tol=1e-6), device='cpu')\n"
+        "    assert S.mult(np.ones(96)).shape == (96,) and S.memory() > 0\n"
+        "    if t.name not in ('BUTTERFLY', 'LR'):\n"
+        "        S.factor()\n"
+        "        assert S.solve(np.ones(96)).shape == (96,)\n"
+        "P = np.random.default_rng(1).standard_normal((300, 2))\n"
+        "for kw in (dict(), dict(matrix_free=True),\n"
+        "           dict(matrix_free=True, compression='ann')):\n"
+        "    k = st.GaussKernel(h=1.0, lam=1.0, device='cpu')\n"
+        "    k.fit_HSS(P, np.sin(P[:, 0]), leaf_size=32, **kw)\n"
+        "    assert np.isfinite(k.predict(P[:10])).all()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax')"
         " or m == 'strumpack_tpu' or m.startswith('strumpack_tpu.')]\n"
         "print(bad)\n"
@@ -123,7 +138,8 @@ def test_sources_import_no_jax():
                 "native/__init__.py", "ops/aca.py", "structured/hss.py",
                 "structured/hodlr.py", "structured/hss_sample.py",
                 "structured/draws.py", "structured/butterfly.py",
-                "structured/hodbf.py"):
+                "structured/hodbf.py", "structured/structured.py",
+                "kernel/kernel.py", "kernel/clustering.py"):
         assert mod in names, mod
     assert len(files) > 20 and not bad, bad
 

@@ -9,7 +9,10 @@
   function (``strumpack_tpu_torch/structured/draws.py``), so a test can
   replay the JAX package's sketches.
 * ``jax_tree_numpy``: a JAX ``Factors.tree`` as the numpy tree
-  ``strumpack_tpu_torch.interop.factors_from_numpy`` takes.
+  ``strumpack_tpu_torch.interop.factors_from_numpy`` takes;
+  ``facade_numpy`` and ``kernel_numpy``: a JAX structured facade object
+  and a fitted JAX kernel as the dicts ``interop.facade_from_numpy`` and
+  ``interop.kernel_from_numpy`` take.
 """
 import jax
 import jax.numpy as jnp
@@ -90,6 +93,91 @@ def structured_numpy(H):
                else v) for k, v in d.items()}
     out["kind"] = kind
     return out
+
+
+def facade_numpy(S):
+    """A JAX ``StructuredMatrix`` wrapper as the dict
+    ``interop.facade_from_numpy`` takes."""
+    name = type(S).__name__
+    t = {"_HSSWrap": "HSS", "_HODLRWrap": "HODLR", "_HODBFWrap": "HODBF",
+         "_BLRDense": "BLR", "_ButterflyWrap": "BUTTERFLY",
+         "_LRMatrix": "LR", "_LossyMatrix": "LOSSY"}[name]
+    d = dict(type=t, rows=S.rows, cols=S.cols)
+    if t in ("HSS", "HODLR", "HODBF"):
+        d["h"] = structured_numpy(S.h)
+    elif t == "BUTTERFLY":
+        d["bf"] = {k: (_np(v) if k == "bf" else v)
+                   for k, v in S.bf.__dict__.items()
+                   if k not in ("dtype", "ranks")}
+    elif t == "LR":
+        d.update(U=np.asarray(S.U), V=np.asarray(S.V))
+    elif t == "LOSSY":
+        d.update(q=np.asarray(S.q), scale=np.asarray(S.scale), mp=S.mp,
+                 np_=S.np_, lu=_np(S._lu))
+    else:
+        d.update(t=S.t, mpad=S.mpad, r=S.r, rel_tol=S.opts.rel_tol,
+                 Ap=np.asarray(S.Ap), tiles=_np(S._tiles),
+                 ranks=np.asarray(S._ranks), fac=_np(S._fac))
+    return d
+
+
+def kernel_numpy(k):
+    """A fitted JAX ``Kernel`` as the dict ``interop.kernel_from_numpy``
+    takes."""
+    d = dict(cls=type(k).__name__, h=k.h, lam=k.lam,
+             Xtrain=np.asarray(k._Xtrain), weights=np.asarray(k._weights),
+             order=np.asarray(k._order), M=structured_numpy(k._M))
+    if hasattr(k, "p"):
+        d["p"] = k.p
+    if hasattr(k, "K"):
+        d["K"] = np.asarray(k.K)
+    return d
+
+
+def jit_jax_structured(monkeypatch):
+    """Traces the JAX package's structured matrices as one program per
+    call: the HSS, HODLR and HODBF constructors and products, the HSS and
+    HODLR factorizations and solves, and the sampled and neighbour-built
+    HSS constructors (op by op they cost 5-15 s of compiles a call on the
+    CPU).  The code traced is the JAX package's own; a sampled build whose
+    closures do not trace (the facade's element emulation reads numpy)
+    runs op by op."""
+    from strumpack_tpu.structured import hodbf as BJ
+    from strumpack_tpu.structured import hodlr as OJ
+    from strumpack_tpu.structured import hss as HJ
+    from strumpack_tpu.structured import hss_sample as SJ
+    for cls in (HJ.HSSMatrix, OJ.HODLRMatrix, BJ.HODBFMatrix):
+        def init(self, A, *a, _cls=cls, _init=cls.__init__, **kw):
+            def build(A):
+                h = _cls.__new__(_cls)
+                _init(h, A, *a, **kw)
+                return h
+            self.__dict__.update(jax.jit(build)(jnp.asarray(A)).__dict__)
+        monkeypatch.setattr(cls, "__init__", init)
+        monkeypatch.setattr(cls, "matvec", _jitted(cls.matvec))
+        if cls is BJ.HODBFMatrix:       # its factorization adapts ranks
+            continue
+        monkeypatch.setattr(cls, "solve", _jitted(cls.solve))
+        factored = jax.jit(lambda h, _factor=cls.factor: (_factor(h), h)[1])
+
+        def jfactor(self, _f=factored):
+            self.__dict__.update(_f(self).__dict__)
+        monkeypatch.setattr(cls, "factor", jfactor)
+    for name in ("hss_from_sampling", "hss_from_neighbors"):
+        def build(*a, _orig=getattr(SJ, name), **kw):
+            try:
+                return jax.jit(lambda: _orig(*a, **kw))()
+            except jax.errors.TracerArrayConversionError:
+                return _orig(*a, **kw)
+        monkeypatch.setattr(SJ, name, build)
+
+
+def _jitted(method):
+    fn = jax.jit(method)
+
+    def call(self, x):
+        return fn(self, jnp.asarray(x))
+    return call
 
 
 def jax_tree_numpy(tree):
