@@ -75,7 +75,18 @@ Phases, in order; any failure raises and the script exits non-zero:
     (100,000 points, matrix-free HSS), rel_err < 0.3 on 2000 points; the
     ann and HODLR fits and the two-moons classifier at 8,192 points
     (accuracy > 0.92);
-20. one JSON line {"kernels": [...]}, then the last line
+20. dist64: the distributed solver (``parallel/``) on exact64's problem:
+    (a) one NCCL rank, factors bit-equal to exact64's and its IR
+    iterations; (b) two gloo ranks sharing the card (spawned), DIRECT and
+    IR, in the cyclic and the contiguous grid layout: modes and report
+    against ``choose_modes``, shard-front factors bit-equal to exact64's,
+    grid fronts' backward errors, residuals, K1-K4 launches against each
+    rank's share of the plan (K4: the contiguous layout's grid panels),
+    reorder / factor / solve seconds and bytes all-gathered per level
+    (ranks sharing one card: not a scaling measurement); K1 and K3 at each
+    rank's slices and K4 at the grid sub-panels against their plain
+    versions, where phase 3 did not check those shapes;
+21. one JSON line {"kernels": [...]}, then the last line
     {"ok": true, "device": {...}}.
 
 The launch counters are set to 0 just before each solver phase factors
@@ -191,7 +202,7 @@ K1_FLAT_MAX = 1 << 26
 
 
 def check_k1(torch, pdev, rng, picks=None, full=True, counts=None,
-             dtype=None):
+             dtype=None, label=None):
     """K1 against its plain version at ``picks`` (default: k1_pairs), on
     random F and child blocks of ``dtype`` (default float32): bit-exact,
     timed by events, with the index_add_ yardstick where its flat index
@@ -199,7 +210,7 @@ def check_k1(torch, pdev, rng, picks=None, full=True, counts=None,
     one dense block a parent front (``numeric._child_blocks``) and the
     pair's ``loc`` map, as the solver launches it.  Without ``full`` the
     times take fewer repetitions; ``counts``: pairs of each pick's
-    shape."""
+    shape; ``label``: the records' tag in the log."""
     from strumpack_tpu_torch.ops.extend_add import extend_add, extend_add_plain
     out = []
     reps = {} if full else dict(warmup=1, reps=3)
@@ -266,9 +277,9 @@ def check_k1(torch, pdev, rng, picks=None, full=True, counts=None,
                    bound_by="bytes", library_ms=lib)
         if counts is not None:
             rec["pairs"] = counts[n]
-        label = ("K1" if full else "K1-structured" if not dtype.is_complex
-                 else "K1-complex")
-        print(label, json.dumps(rec), flush=True)
+        tag = label or ("K1" if full else "K1-structured"
+                        if not dtype.is_complex else "K1-complex")
+        print(tag, json.dumps(rec), flush=True)
         out.append(rec)
         del F, C, Fk, Fw
     return out
@@ -1768,6 +1779,415 @@ def kernel_phase(torch, runs, device="cuda", n=KERNEL_N, small=KERNEL_SMALL):
                               fits=recs)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the distributed solver (dist64)
+# ---------------------------------------------------------------------------
+
+DIST_NX = 64            # exact64's problem
+DIST_RANKS = 2          # gloo ranks sharing one card
+DIST_TIMEOUT_S = 300    # a collective or a rank that waits longer raises
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def dist_opts():
+    """exact64's options (``make_solver(64, "float32", 1e-5)``)."""
+    import strumpack_tpu_torch as st
+    return st.SPOptions(factor_dtype="float32", refine_dtype="float32",
+                        krylov_solver=st.KrylovSolver.REFINE, nd_leaf=16,
+                        rel_tol=1e-5)
+
+
+def front_backward_error(torch, F, out):
+    """max over the blocks of a partial factorization (lu, perm, L21, U12,
+    CB) of the assembled fronts F: ||P F11 - L U||, ||P F12 - L U12||,
+    ||F21 - L21 U||, ||F22 - L21 U12 - CB||, each relative to its block's
+    norm (f64)."""
+    lu, perm, L21, U12, CB = (x.double() if x.is_floating_point() else x
+                              for x in out)
+    F = F.double()
+    s = lu.shape[1]
+    Fp = torch.gather(F[:, :s], 1, perm[:, :, None].expand(-1, -1,
+                                                           F.shape[2]))
+    L = torch.tril(lu, -1) + torch.eye(s, dtype=lu.dtype, device=lu.device)
+    U = torch.triu(lu)
+    parts = [(Fp[:, :, :s], L @ U)]
+    if F.shape[1] > s:
+        parts += [(Fp[:, :, s:], L @ U12), (F[:, s:, :s], L21 @ U),
+                  (F[:, s:, s:], L21 @ U12 + CB)]
+    return max(float(torch.linalg.norm(a - b) / max(
+        float(torch.linalg.norm(a)), 1e-300)) for a, b in parts)
+
+
+def dist_rank(rank, world, port, q, done, nx, device):
+    """One of the gloo ranks of dist64 (b), all on cuda:0: reorder
+    exact64's problem, then for the cyclic and the contiguous grid layout
+    factor with the launch counters zeroed (counts against this rank's
+    share of the plan), solve DIRECT and (cyclic) IR; the grid fronts'
+    backward errors against the single-device factorization of the same
+    assembled fronts.  Puts (rank, record, this rank's shard factors as
+    tensors on ``device``: CUDA tensors travel by IPC handle) on ``q`` and
+    keeps them alive until ``done``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from strumpack_tpu_torch.frontal import numeric
+    from strumpack_tpu_torch.frontal.numeric import use_full_fp32_matmul
+    from strumpack_tpu_torch.parallel import DistributedSparseSolver
+    from strumpack_tpu_torch.parallel import dist as D
+    from strumpack_tpu_torch.parallel import spmd
+    from strumpack_tpu_torch.sparse.gen import poisson3d
+    import strumpack_tpu_torch as st
+    use_full_fp32_matmul()
+    D.init_process_group("gloo", rank, world, port, timeout_s=DIST_TIMEOUT_S)
+    try:
+        mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("b",))
+        A = poisson3d(nx)
+        b = A.spmv(np.random.default_rng(64).standard_normal(A.n))
+        s = DistributedSparseSolver(mesh, dist_opts(), device=device)
+        s.set_csr_matrix(A)
+        t0 = time.perf_counter()
+        check(s.reorder(nx, nx, nx) == st.ReturnCode.SUCCESS, "reorder")
+        rec = dict(rank=rank, reorder_s=time.perf_counter() - t0,
+                   modes=s.sp.counts(), report=s.sp.report,
+                   bounds={f"{li},{bi}": fb
+                           for (li, bi), fb in s.sp.bounds.items()})
+        grid_fronts = []
+        orig = spmd._grid_factor
+
+        def capture(sp, bd, F, thresh):
+            out = orig(sp, bd, F, thresh)
+            grid_fronts.append((bd, F.clone(), thresh, out))
+            return out
+        spmd._grid_factor = capture
+        runs = {}
+        for layout in ("cyclic", "contiguous"):
+            os.environ["STRUMPACK_TPU_CYCLIC"] = \
+                "1" if layout == "cyclic" else "0"
+            share = s.sp.launch_share(torch.float32)
+            s._factored = False
+            s.sp.level_bytes = [0] * len(s.sp.level_bytes)
+            grid_fronts.clear()
+            reset_counts()
+            _sync(torch, device)
+            g0 = D.all_gather.seconds
+            t0 = time.perf_counter()
+            s.factor()
+            _sync(torch, device)
+            t_factor = time.perf_counter() - t0
+            counts = read_counts()
+            r = dict(share=share, launches=counts, factor_s=t_factor,
+                     gather_s=D.all_gather.seconds - g0,
+                     level_bytes=list(s.sp.level_bytes),
+                     gathered_bytes=sum(s.sp.level_bytes))
+            for k, n in share.items():
+                check(counts[k] == n, f"dist64 rank {rank} {layout}: {k} "
+                      f"launches {counts[k]} == its share {n}")
+            check(counts["panel_lu_designs"]["global"] == 0,
+                  f"dist64 rank {rank} {layout}: no K4 grid panel on the "
+                  "global design")
+            solvers = ("DIRECT", "REFINE") if layout == "cyclic" \
+                else ("DIRECT",)
+            for kind in solvers:
+                s.opts.krylov_solver = st.KrylovSolver[kind]
+                t0 = time.perf_counter()
+                x, rc = s.solve(b)
+                t_solve = time.perf_counter() - t0
+                x64 = np.asarray(x, np.float64)
+                r[kind] = dict(
+                    rc=rc.name, solve_s=t_solve,
+                    its=s.Krylov_iterations(),
+                    host_rel_residual=float(
+                        np.linalg.norm(b - A.spmv(x64))
+                        / np.linalg.norm(b)),
+                    max_scaled_residual=A.max_scaled_residual(x64, b))
+            be = []
+            for bd, F, thresh, out in grid_fronts:
+                ref = numeric._factor_bucket(F.clone(), thresh, bd.bp.s_pad)
+                be.append(dict(
+                    nf=bd.bp.nf, p=bd.bp.p, s=bd.bp.s_pad,
+                    grid=front_backward_error(torch, F, out),
+                    single=front_backward_error(torch, F, ref)))
+            r["grid_backward_errors"] = be
+            grid_fronts.clear()
+            runs[layout] = r
+        spmd._grid_factor = orig
+        os.environ.pop("STRUMPACK_TPU_CYCLIC", None)
+        rec["runs"] = runs
+        # the last factorization (contiguous layout) holds the same shard
+        # factors: exact64's one grid bucket is the root, so no shard
+        # front reads a CB the grid layout computed
+        shard = {key: [s._tree[name][key] for name in
+                       ("lu", "perm", "L21", "U12")]
+                 for key in rec["bounds"]}
+        q.put((rank, rec, shard))
+        if not done.wait(DIST_TIMEOUT_S):
+            raise TimeoutError("dist64: the parent did not release the "
+                               "shard factors")
+        del shard
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_against(torch, s64, bounds, shard):
+    """A rank's shard-bucket factors (lu, perm, L21, U12 of fronts f0..f1)
+    against the same fronts of exact64's: per route (K3/K2 or the
+    library), the buckets bit-equal, and the largest difference relative
+    to the largest entry; the differing buckets listed."""
+    from strumpack_tpu_torch.ops import front_lu as FL
+    out = dict(kernel_buckets=0, kernel_bit_equal=0, library_buckets=0,
+               library_bit_equal=0, max_rel_diff=0.0, differing=[])
+    for key, (f0, f1) in bounds.items():
+        li, bi = map(int, key.split(","))
+        bp = s64.plan.levels[li][bi]
+        route = ("kernel" if FL.use_cross(bp.s_pad, bp.p, torch.float32)
+                 or FL.k2_holds(bp.p, torch.float32) else "library")
+        same, rel = True, 0.0
+        for name, t in zip(("lu", "perm", "L21", "U12"), shard[key]):
+            ref = s64.fac.tree[name][key][f0:f1]
+            if torch.equal(t, ref):
+                continue
+            same = False
+            d = float((t.double() - ref.double()).abs().max())
+            rel = max(rel, d / max(float(ref.double().abs().max()), 1e-300))
+        out[route + "_buckets"] += 1
+        out[route + "_bit_equal"] += same
+        out["max_rel_diff"] = max(out["max_rel_diff"], rel)
+        if not same:
+            out["differing"].append(dict(key=key, route=route, nf=bp.nf,
+                                         p=bp.p, s=bp.s_pad, rel=rel))
+    return out
+
+
+def dist_checks(torch, rng, s64, k3_done, k4_done):
+    """K1, K3 and K4 at the shapes dist64 (b) launches that the checks
+    before did not cover: K1 and K3 at each rank's slices of the shard
+    buckets (the child CBs whole: they are all-gathered), K4 at the
+    contiguous grid layout's sub-panels of the grid buckets.  Returns
+    (K1, K3, K4 records)."""
+    import types
+    from strumpack_tpu_torch.ops import front_lu as FL
+    from strumpack_tpu_torch.ops import panel_lu as PP
+    from strumpack_tpu_torch.parallel import spmd
+    from strumpack_tpu_torch.parallel.dist2d import _grid_blk, panel_route
+    full = s64.pdev
+    k1_done = set(k1_shapes(full))
+    k1, k3, k4 = [], [], []
+    for r in range(DIST_RANKS):
+        sp = spmd.ShardedPlan(full, types.SimpleNamespace(ndev=DIST_RANKS,
+                                                          me=r))
+        for (li, bi), lb in sorted(sp.local.items()):
+            bp = lb.bp
+            for side in ("L", "R"):
+                for pr in getattr(lb, "pairs" + side):
+                    comp = bool(full.levels[li - 1][pr.bk].bp.cb_comp)
+                    nfc = bp.nf if comp else \
+                        full.levels[li - 1][pr.bk].bp.nf
+                    key = (bp.nf, bp.p, pr.u, nfc, comp)
+                    if key in k1_done:
+                        continue
+                    k1_done.add(key)
+                    # the plan with this rank's slice in the bucket's place
+                    view = object.__new__(type(full))
+                    view.levels = list(full.levels)
+                    view.levels[li] = list(full.levels[li])
+                    view.levels[li][bi] = lb
+                    k1 += check_k1(torch, rng=rng, pdev=view, full=False,
+                                   picks=[(bp.p, bp.nf, li, bi, side, pr)],
+                                   label="K1-dist")
+            if (bp.s_pad and FL.use_cross(bp.s_pad, bp.p, torch.float32)
+                    and (bp.nf, bp.p, bp.s_pad, "float32", True)
+                    not in k3_done):
+                k3_done.add((bp.nf, bp.p, bp.s_pad, "float32", True))
+                k3.append(check_k3(torch, rng, bp.nf, bp.p, bp.s_pad,
+                                   "float32", full=False))
+        for (li, bi), mode in sp.modes.items():
+            bp = full.levels[li][bi].bp
+            if mode != "grid" or r:
+                continue
+            w0 = _grid_blk(bp.s_pad)
+            for o in range(0, bp.s_pad, w0):
+                w = min(w0, bp.s_pad - o)
+                rows = bp.p - o
+                if panel_route(rows, w, torch.float32) != "k4":
+                    continue
+                for jb in range(0, w, PP.PANEL_W):
+                    ws = min(PP.PANEL_W, w - jb)
+                    if (1, rows, ws, jb) in k4_done:
+                        continue
+                    k4_done.add((1, rows, ws, jb))
+                    k4.append(check_k4(torch, rng, 1, rows, ws, jb,
+                                       "float32",
+                                       PP.design(rows, ws, 4, jb)))
+        torch.cuda.empty_cache()
+    return k1, k3, k4
+
+
+def dist_phase(torch, runs, s64, main_run, nx=DIST_NX, device="cuda:0",
+               backend="nccl"):
+    """Phase 20, dist64: DistributedSparseSolver on exact64's problem.
+    (a) one NCCL rank (mesh ('b',) of 1): every bucket repl, factors
+    bit-equal to phase 5's, its IR iterations and residual level;
+    (b) DIST_RANKS gloo ranks sharing cuda:0 (spawned), DIRECT and IR:
+    modes and replicated fraction = choose_modes' report, shard-front
+    factors bit-equal to phase 5's where K3 or K2 factors them (the
+    library route's batched LU picks its algorithm by batch count: to f32
+    rounding, as chunked64's chunks), grid fronts' backward errors within
+    10x the single-device factorization's of the same fronts, residuals
+    at exact64's level, K1-K4 launches = each rank's share of the plan.
+    These times measure ranks sharing one card, not scaling.  (``device``
+    and ``backend``: the CPU and gloo rehearse the phase.)"""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from torch.distributed.device_mesh import init_device_mesh
+    import strumpack_tpu_torch as st
+    from strumpack_tpu_torch.parallel import DistributedSparseSolver
+    from strumpack_tpu_torch.parallel import dist as D
+    from strumpack_tpu_torch.parallel import spmd
+    from strumpack_tpu_torch.sparse.gen import poisson3d
+    t_phase = time.perf_counter()
+    A = poisson3d(nx)
+    b = A.spmv(np.random.default_rng(64).standard_normal(A.n))
+    # (a) one NCCL rank
+    D.init_process_group(backend, 0, 1, _free_port(),
+                         timeout_s=DIST_TIMEOUT_S)
+    try:
+        mesh = init_device_mesh("cuda" if backend == "nccl" else "cpu", (1,),
+                                mesh_dim_names=("b",))
+        s = DistributedSparseSolver(mesh, dist_opts(), device=device)
+        s.set_csr_matrix(A)
+        t0 = time.perf_counter()
+        check(s.reorder(nx, nx, nx) == st.ReturnCode.SUCCESS, "reorder")
+        t_reorder = time.perf_counter() - t0
+        counts_modes = s.sp.counts()
+        check(counts_modes["repl"] == sum(len(lv) for lv in s.plan.levels),
+              f"dist64 (a): every bucket repl on one rank {counts_modes}")
+        reset_counts()
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        s.factor()
+        _sync(torch, device)
+        t_factor = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        x, rc = s.solve(b)
+        t_solve = time.perf_counter() - t0
+        counts = read_counts()
+        same = all(torch.equal(s._tree[name][key], s64.fac.tree[name][key])
+                   for name in ("lu", "perm", "L21", "U12")
+                   for key in s64.fac.tree[name])
+        x64 = np.asarray(x, np.float64)
+        rec_a = dict(ranks=1, backend=backend, reorder_s=t_reorder,
+                     factor_s=t_factor, solve_s=t_solve, rc=rc.name,
+                     its=s.Krylov_iterations(), factors_bit_equal=same,
+                     host_rel_residual=float(np.linalg.norm(
+                         b - A.spmv(x64)) / np.linalg.norm(b)),
+                     max_scaled_residual=A.max_scaled_residual(x64, b),
+                     launches=counts)
+        print("dist64 (a)", json.dumps(rec_a), flush=True)
+        check(same, "dist64 (a): factors bit-equal to exact64's")
+        check(rc == st.ReturnCode.SUCCESS
+              and rec_a["its"] == main_run["its"],
+              f"dist64 (a): {rec_a['its']} IR iterations == exact64's "
+              f"{main_run['its']}")
+        check(rec_a["max_scaled_residual"]
+              <= 10 * main_run["max_scaled_residual"],
+              "dist64 (a): max scaled residual at exact64's level")
+        for k, n in plan_launches(s.pdev, torch.float32).items():
+            check(counts[k] == n, f"dist64 (a): {k} launches {counts[k]} "
+                  f"== plan {n}")
+        del s
+    finally:
+        dist.destroy_process_group()
+    # (b) DIST_RANKS gloo ranks on this card
+    ctx = mp.get_context("spawn")
+    q, done = ctx.Queue(), ctx.Event()
+    pc = mp.start_processes(dist_rank, args=(DIST_RANKS, _free_port(), q,
+                                             done, nx, device),
+                            nprocs=DIST_RANKS, join=False,
+                            start_method="spawn")
+    got = {}
+    deadline = time.perf_counter() + 2 * DIST_TIMEOUT_S
+    try:
+        while len(got) < DIST_RANKS:
+            check(time.perf_counter() < deadline, "dist64: ranks in time")
+            try:
+                rank, rec, shard = q.get(timeout=5)
+                got[rank] = (rec, shard)
+            except Exception:       # queue.Empty: see whether a rank died
+                pc.join(timeout=0)
+        modes, report = spmd.choose_modes(s64.pdev, (DIST_RANKS,))
+        want_counts = dict.fromkeys(("shard", "grid", "repl"), 0)
+        for m in modes.values():
+            want_counts[m] += 1
+        recs = []
+        for rank in range(DIST_RANKS):
+            rec, shard = got[rank]
+            check(rec["modes"] == want_counts
+                  and rec["report"]["replicated_frac"]
+                  == report["replicated_frac"],
+                  f"dist64 rank {rank}: modes {rec['modes']} and report "
+                  "== choose_modes'")
+            rec["shard"] = shard_against(torch, s64, rec.pop("bounds"),
+                                         shard)
+            for layout, r in rec["runs"].items():
+                for kind in ("DIRECT", "REFINE"):
+                    if kind not in r:
+                        continue
+                    v = r[kind]
+                    check(v["rc"] == "SUCCESS"
+                          and v["host_rel_residual"] <= 1e-4,
+                          f"dist64 rank {rank} {layout} {kind}: rc "
+                          f"{v['rc']}, host residual "
+                          f"{v['host_rel_residual']:.3g}")
+                    check(v["max_scaled_residual"]
+                          <= 10 * main_run["max_scaled_residual"],
+                          f"dist64 rank {rank} {layout} {kind}: max scaled "
+                          f"residual {v['max_scaled_residual']:.3g} at "
+                          "exact64's level")
+                for e in r["grid_backward_errors"]:
+                    check(e["grid"] <= 10 * e["single"] + 1e-7,
+                          f"dist64 rank {rank} {layout}: grid front "
+                          f"backward error {e}")
+            recs.append(rec)
+            print(f"dist64 (b) rank {rank}", json.dumps(rec), flush=True)
+        del shard, got
+        for rank in range(DIST_RANKS):
+            sh = recs[rank]["shard"]
+            check(sh["kernel_bit_equal"] == sh["kernel_buckets"],
+                  f"dist64 rank {rank}: the K3/K2-routed shard fronts' "
+                  f"factors bit-equal to exact64's ({sh})")
+            check(sh["max_rel_diff"] <= 1e-4,
+                  f"dist64 rank {rank}: the shard fronts' factors equal to "
+                  f"exact64's to f32 rounding ({sh['max_rel_diff']:.3g})")
+    finally:
+        done.set()
+    # join() waits for one rank at a time: True once all have ended
+    end = time.perf_counter() + DIST_TIMEOUT_S
+    while not pc.join(timeout=max(end - time.perf_counter(), 1)):
+        if time.perf_counter() > end:
+            for proc in pc.processes:
+                proc.terminate()
+            check(False, "dist64: the ranks ended")
+    rec = dict(phase="dist64", a=rec_a, b=recs,
+               seconds=time.perf_counter() - t_phase)
+    runs["dist64_nccl1"] = dict(phase="dist64_nccl1",
+                                launches=rec_a["launches"])
+    for r in recs:
+        runs[f"dist64_rank{r['rank']}"] = dict(
+            phase=f"dist64_rank{r['rank']}",
+            launches={k: sum(v["launches"][k] for v in r["runs"].values())
+                      for k in ("extend_add", "front_lu_cross", "small_lu",
+                                "panel_lu")})
+    print(f"dist64: {rec['seconds']:.1f} s (ranks sharing one card: not a "
+          "scaling measurement)", flush=True)
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1999,7 +2419,7 @@ def main():
         struct_run(name)
 
     k1_cx = complex_phases(torch, rng, runs, main_run, s64)
-    del A64, s64
+    del A64
     torch.cuda.empty_cache()
 
     phase("18 dense16k")
@@ -2013,7 +2433,18 @@ def main():
     kernel_phase(torch, runs)
     torch.cuda.empty_cache()
 
-    phase("20 summary")
+    phase("20 dist64")
+    # exact64's solver stayed for the comparison with its factors
+    dist_phase(torch, runs, s64, main_run)
+    k1_ds, k3_ds, k4_ds = dist_checks(
+        torch, rng, s64, k3_done | {
+            (r["nf"], r["p"], r["s"], r["dtype"], True) for r in k3_st},
+        k4_done | {(r["nf"], r["p"], r["w"], r["row0"])
+                   for r in k4_st + k4_dn if r["dtype"] == "float32"})
+    del s64
+    torch.cuda.empty_cache()
+
+    phase("21 summary")
     print("K4-blocked", json.dumps(blocked))
     print("K3-general", json.dumps(k3_gen))
     print("K2-general", json.dumps(k2_gen))
@@ -2024,6 +2455,9 @@ def main():
     print("K1-complex", json.dumps(k1_cx))
     print("K2-dense", json.dumps(k2_dn))
     print("K4-dense", json.dumps(k4_dn))
+    print("K1-dist", json.dumps(k1_ds))
+    print("K3-dist", json.dumps(k3_ds))
+    print("K4-dist", json.dumps(k4_ds))
     print("ptxas", json.dumps(ptxas))
 
     def sums(recs):
@@ -2037,12 +2471,12 @@ def main():
         return out
 
     def entry(name, src, replaces, run, key, recs, general=(),
-              structured=(), complex_=(), dense=()):
+              structured=(), complex_=(), dense=(), dist=()):
         """One kernel's line: launches from ``run`` (and by phase), the
         sums over its main checks ``recs``, and its checks at the
-        general-input, the rank-structured, the complex and the dense
-        facade phases' shapes summed apart (the library yardstick where it
-        was timed)."""
+        general-input, the rank-structured, the complex, the dense
+        facade and the distributed phases' shapes summed apart (the
+        library yardstick where it was timed)."""
         gen = sums(general)
         return dict(
             name=name, route="cuda", source=src, replaces=replaces,
@@ -2051,7 +2485,7 @@ def main():
                                for n, r in runs.items()},
             max_abs_err=max(r["max_abs_err"]
                             for r in (*recs, *general, *structured,
-                                      *complex_, *dense)),
+                                      *complex_, *dense, *dist)),
             ms=sum(r["ms"] for r in recs),
             plain_ms=sum(r["plain_ms"] for r in recs),
             bound_ms=sum(r["bound_ms"] for r in recs),
@@ -2061,7 +2495,7 @@ def main():
                         else sum(r["library_ms"] for r in recs)),
             general_shapes=gen, structured_shapes=sums(structured),
             complex_shapes=sums(complex_), dense_shapes=sums(dense),
-            shapes=recs)
+            dist_shapes=sums(dist), shapes=recs)
 
     def k3_entry(e):
         # the kernel alone beside the wrapper + Schur GEMM of ``ms``
@@ -2073,16 +2507,17 @@ def main():
     kernels = [
         entry("extend_add", "strumpack_tpu_torch/csrc/extend_add.cu",
               "strumpack_tpu/ops/pallas_extadd.py:204", main_run,
-              "extend_add", k1, structured=k1_st, complex_=k1_cx),
+              "extend_add", k1, structured=k1_st, complex_=k1_cx,
+              dist=k1_ds),
         k3_entry(entry("front_lu_cross", "strumpack_tpu_torch/csrc/front_lu.cu",
                        "strumpack_tpu/ops/pallas_lu.py:286", main_run,
-                       "front_lu_cross", k3, k3_gen, k3_st)),
+                       "front_lu_cross", k3, k3_gen, k3_st, dist=k3_ds)),
         entry("small_lu", "strumpack_tpu_torch/csrc/small_lu.cu",
               "strumpack_tpu/ops/pallas_lu.py:102", blr_run, "small_lu", k2,
               k2_gen, k2_st, dense=k2_dn),
         entry("panel_lu", "strumpack_tpu_torch/csrc/panel_lu.cu",
               "strumpack_tpu/ops/pallas_panel_lu.py:110", blr_run,
-              "panel_lu", k4, structured=k4_st, dense=k4_dn),
+              "panel_lu", k4, structured=k4_st, dense=k4_dn, dist=k4_ds),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -246,3 +246,31 @@ def factors_from_numpy(pdev: PlanDev, tree_np, dtype=None,
                   + [e[0].D for e in tree["hss"].values()])
         dtype = firsts[0].dtype
     return Factors(pdev, dtype, tree)
+
+
+def _front_slice(v, f0, f1):
+    """Fronts f0..f1 of a factor entry: tensors and tuples of tensors
+    along their front axis."""
+    if torch.is_tensor(v):
+        return v[f0:f1]
+    if isinstance(v, tuple):
+        return tuple(_front_slice(x, f0, f1) for x in v)
+    raise NotImplementedError(
+        f"slicing a {type(v).__name__} factor entry over ranks (structured "
+        "fronts of shard buckets come with slice 8 of the port)")
+
+
+def shard_factors(fac: Factors, sp) -> dict:
+    """One rank's share of single-device factors (e.g. carried from the
+    JAX package by ``factors_from_numpy``) under a ``parallel.spmd.
+    ShardedPlan``: its fronts of each shard bucket, the other buckets
+    whole -- the tree ``parallel.spmd.solve`` takes."""
+    tree = {}
+    for name, entries in fac.tree.items():
+        tree[name] = {}
+        for key, val in entries.items():
+            li, bi = map(int, key.split(","))
+            if (li, bi) in sp.bounds:
+                val = _front_slice(val, *sp.bounds[(li, bi)])
+            tree[name][key] = val
+    return tree

@@ -159,9 +159,25 @@ CASES = {
 }
 
 
-def _pair(name):
+# The whole-solver comparison runs at the smallest grid whose plan still
+# holds a bucket of the kind under test, the separator threshold scaled to
+# the grid: (grid, dims, SPOptions fields).  poisson2d(16) for the lossy
+# cases (three lossy buckets, the root's separator of 16 among them);
+# Poisson 12^3 for the compressed CBs (two BLR buckets of s = 72 with
+# compressed CBs below the BLR root of s = 144; at 10^3 with the
+# threshold at 32 the compressed CBs no longer lower the peak model).
+SOLVE_CASES = {k: (lambda: poisson2d(16), (16, 16), {})
+               for k in ("lossy16", "lossy8", "lossy4")}
+SOLVE_CASES.update({k: (lambda: poisson3d(12), (12, 12, 12), {})
+                    for k in ("blr_cb", "blr_dense_cb")})
+
+
+def _pair(name, solve=False):
     import strumpack_tpu as sj
     make, dims, comp, tweak, kw = CASES[name]
+    if solve:
+        make, dims, over = SOLVE_CASES[name]
+        kw = dict(kw, **over)
     kw = {k: (sj.KrylovSolver[v] if k == "krylov_solver" else v)
           for k, v in kw.items()}
     A = make()
@@ -184,8 +200,10 @@ def test_solver_matches_jax(name):
     """The port's solve on the JAX package's (quantized) factors within
     1e-10 of the JAX solve; both solvers on their own under the JAX
     test's gate, Krylov iterations within 2; compressed CBs lower the
-    peak model, lossy buckets store their bits."""
-    A, ref, port = _pair(name)
+    peak model, lossy buckets store their bits.  At ``SOLVE_CASES``'
+    grid."""
+    A, ref, port = _pair(name, solve=True)
+    assert port.pdev.kinds()["blr_cb" if name == "blr_cb" else "lossy"] > 0
     b = A.spmv(np.random.default_rng(0).standard_normal(A.n))
     _, rc_ref = ref.solve(b)
     assert rc_ref.name == "SUCCESS"
@@ -196,7 +214,7 @@ def test_solver_matches_jax(name):
     assert A.max_scaled_residual(x, b) < ERROR_TOL * port.opts.rel_tol
     assert abs(port.Krylov_iterations() - ref.Krylov_iterations()) <= 2
     if name == "blr_cb":
-        _, _, dense = _pair("blr_dense_cb")
+        _, _, dense = _pair("blr_dense_cb", solve=True)
         assert NT.factor_peak_bytes(port.pdev, 8) <= \
             NT.factor_peak_bytes(dense.pdev, 8)
     else:

@@ -764,3 +764,50 @@ def test_factor_runs_past_the_memory_model(cuda_device, monkeypatch):
     b = A.spmv(np.random.default_rng(3).standard_normal(A.n))
     x, rc = s.solve(b)
     assert rc == st.ReturnCode.SUCCESS
+
+
+@pytest.mark.cuda
+def test_distributed_one_nccl_rank(cuda_device):
+    """DistributedSparseSolver on one NCCL rank (mesh ('b',) of 1) at
+    Poisson 32^3 with exact32's options: every bucket repl, the factors
+    bit-equal to SparseSolver's, the same IR iteration count."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import strumpack_tpu_torch as st
+    from strumpack_tpu_torch.parallel import DistributedSparseSolver
+    from strumpack_tpu_torch.parallel import dist as D
+    from strumpack_tpu_torch.sparse.gen import poisson3d
+
+    def opts():
+        return st.SPOptions(factor_dtype="float32", refine_dtype="float32",
+                            krylov_solver=st.KrylovSolver.REFINE,
+                            nd_leaf=16, rel_tol=1e-5)
+    A = poisson3d(32)
+    b = A.spmv(np.random.default_rng(32).standard_normal(A.n))
+    one = st.SparseSolver(opts())
+    one.set_csr_matrix(A)
+    one.reorder(32, 32, 32)
+    x1, rc1 = one.solve(b)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    D.init_process_group("nccl", 0, 1, port, timeout_s=120)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("b",))
+        s = DistributedSparseSolver(mesh, opts())
+        s.set_csr_matrix(A)
+        s.reorder(32, 32, 32)
+        x, rc = s.solve(b)
+        assert s.sp.counts()["repl"] == sum(len(lv) for lv in s.plan.levels)
+        for name in ("lu", "perm", "L21", "U12"):
+            for key, t in one.fac.tree[name].items():
+                assert torch.equal(s._tree[name][key], t), (name, key)
+        assert rc == rc1 == st.ReturnCode.SUCCESS
+        assert s.Krylov_iterations() == one.Krylov_iterations()
+        assert A.max_scaled_residual(x, b) <= 10 * max(
+            A.max_scaled_residual(x1, b), 1e-7)
+    finally:
+        dist.destroy_process_group()

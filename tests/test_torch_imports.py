@@ -37,13 +37,15 @@ def test_package_run_imports_no_jax():
     the ZFP_BLR_HODLR composite with compressed CBs and ACA tiles), and
     complex input (native complex128 and complex_via_real) with HODBF
     fronts, every structured facade type and kernel fits (dense, sketch
-    and ann): no jax* and no strumpack_tpu.* module may appear in
-    sys.modules."""
+    and ann), and it imports the distributed solver's modules: no jax*
+    and no strumpack_tpu.* module may appear in sys.modules."""
     code = (
         "import sys, numpy as np\n"
         "import strumpack_tpu_torch as st\n"
         "from strumpack_tpu_torch.sparse.gen import poisson2d\n"
         "import strumpack_tpu_torch.interop\n"
+        "from strumpack_tpu_torch.parallel import (dist, p2p, dist2d,\n"
+        "    dist_matrix, spmd, dist_spmv, krylov_dist, driver)\n"
         "A = poisson2d(8)\n"
         "s = st.SparseSolver(st.SPOptions(), device='cpu')\n"
         "s.set_csr_matrix(A)\n"
@@ -139,7 +141,11 @@ def test_sources_import_no_jax():
                 "structured/hodlr.py", "structured/hss_sample.py",
                 "structured/draws.py", "structured/butterfly.py",
                 "structured/hodbf.py", "structured/structured.py",
-                "kernel/kernel.py", "kernel/clustering.py"):
+                "kernel/kernel.py", "kernel/clustering.py",
+                "parallel/dist.py", "parallel/p2p.py", "parallel/dist2d.py",
+                "parallel/dist_matrix.py", "parallel/spmd.py",
+                "parallel/dist_spmv.py", "parallel/krylov_dist.py",
+                "parallel/driver.py", "parallel/__init__.py"):
         assert mod in names, mod
     assert len(files) > 20 and not bad, bad
 

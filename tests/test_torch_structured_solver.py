@@ -67,8 +67,38 @@ CASES = {
 }
 
 
-def _pair(name):
+def _composite8(o):
+    _composite(o)
+    o.hodlr_min_sep_size = 64
+
+
+# The whole-solver comparison runs at the smallest grid whose plan still
+# holds the case's bucket kinds (the JAX reference's compile grows with
+# the plan's buckets), with the separator thresholds scaled to the grid
+# where the plan's own grid is too small: (grid, dims, tweak, SPOptions
+# fields).  poisson2d(32): hss, hss_sample_root and hodlr have the root
+# front (s = 32) as their one compressed bucket; hss_sample_interior at
+# compression_min_sep_size 16 samples five fronts, the level-1 ones
+# (s = 16) with an update set; zfp_blr_hodlr at Poisson 8^3 with
+# compression_min_sep_size 32 and hodlr_min_sep_size 64 has the HODLR
+# root (s = 64), a BLR bucket (s = 32) and 15 lossy ones.
+SOLVE_CASES = {
+    "hss": (lambda: poisson2d(32), (32, 32), None, {}),
+    "hss_sample_root": (lambda: poisson2d(32), (32, 32), None, {}),
+    "hodlr": (lambda: poisson2d(32), (32, 32), None, {}),
+    "hss_sample_interior": (lambda: poisson2d(32), (32, 32), None,
+                            dict(compression_min_sep_size=16)),
+    "zfp_blr_hodlr": (lambda: poisson3d(8), (8, 8, 8), _composite8,
+                      dict(compression_min_sep_size=32)),
+}
+
+
+def _pair(name, solve=False):
     make, dims, comp, tweak, kw, kinds = CASES[name]
+    if solve:
+        make, dims, tw, over = SOLVE_CASES[name]
+        tweak = tw or tweak
+        kw = dict(kw, **over)
     A = make()
     ref, port = solver_pair(A, dims, comp, tweak, **kw)
     return A, ref, port, kinds
@@ -94,8 +124,14 @@ def test_solver_matches_jax(name):
     """The port's solve on the JAX package's factors within 1e-10 of the
     JAX solve (no randomness between them); then both solvers on their
     own: rc SUCCESS, the JAX test's residual gate, and Krylov iterations
-    within 2 of the JAX package's."""
-    A, ref, port, _ = _pair(name)
+    within 2 of the JAX package's.  At ``SOLVE_CASES``' grid, whose plan
+    holds buckets of the case's kinds."""
+    A, ref, port, kinds = _pair(name, solve=True)
+    have = port.pdev.kinds()
+    assert all(have[k] > 0 for k in kinds), (kinds, have)
+    if name == "hss_sample_interior":
+        assert any(bp.hss_sample and bp.u_pad > 0
+                   for lvl in port.plan.levels for bp in lvl)
     b = A.spmv(np.random.default_rng(0).standard_normal(A.n))
     x_ref, rc_ref = ref.solve(b)
     assert rc_ref.name == "SUCCESS"

@@ -1,10 +1,11 @@
 """Helpers of the port's tests (``tests/test_torch_*.py``).
 
-* One torch thread a process: pytest-xdist runs six workers on the
-  host's cores, and the port's small CPU tensors gain nothing from
-  intra-op threads there, while their spinning threads slow every worker
-  (on an 8-core host the port's test files took 12.3 min of CPU with the
-  default thread count; with one thread, and three more files, 10.8).
+* One torch thread and one BLAS thread a process: pytest-xdist runs six
+  workers on the host's cores, and the port's small CPU tensors gain
+  nothing from intra-op threads there, while their spinning threads slow
+  every worker (on an 8-core host the port's test files took 12.3 min of
+  CPU with the default thread count; with one thread, and three more
+  files, 10.8).
 * ``jax_draw``: the JAX package's own random draws for the port's draw
   function (``strumpack_tpu_torch/structured/draws.py``), so a test can
   replay the JAX package's sketches.
@@ -17,9 +18,14 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import threadpoolctl
 import torch
 
 torch.set_num_threads(1)
+# numpy's BLAS the same way: six workers of 8 OpenBLAS threads each
+# oversubscribe the host's cores, and the test processes' reference
+# products (Schur complements, dense solves) are small
+threadpoolctl.threadpool_limits(1, user_api="blas")
 
 _JDT = {torch.float32: jnp.float32, torch.float64: jnp.float64,
         torch.complex64: jnp.complex64, torch.complex128: jnp.complex128}
