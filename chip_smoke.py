@@ -11,8 +11,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    report checked for spills; K3's capacity as its wrapper states it (the
    routing's) held against the kernel's own;
 3. each kernel against its plain PyTorch version on the card, at shapes of
-   the main paths: K1 (extend-add) bit-exact on real 64^3 plan maps, with
-   one index_add_ as its yardstick; K3 (cross-shape front LU) bit-exact
+   the main paths: K1 (extend-add, one launch a bucket chunk) bit-equal to
+   its pair-by-pair plain version at every call one factorization of
+   exact64 makes, and at exact64's three pairs earlier designs timed, each
+   as a table of one, with one index_add_ as its yardstick; then at every
+   call of the general-input phases' plans (8-12), in their factor dtype;
+   K3 (cross-shape front LU) bit-exact
    at every shape exact64, exact32, blr50 (f32) and f64_32 (f64) launch,
    each timed as the kernel alone (profiler device time), the wrapper's
    host time, the wrapper with the Schur GEMM and the library route (the
@@ -24,11 +28,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    then K3 and K2 at every shape of the general-input phases (8-12) not
    checked before, bit-exact: without pivoting at spd64's and
    aniso24_nopivot's, with pivoting at nd64's, metis64's, mc64's and the
-   orderings' (events only, fewer repetitions); then every K1, K2, K3
-   and K4 shape of the rank-structured phases (13-14) not checked before:
-   K1 on every (nf, p, u, child fronts) of their assembled buckets, on
-   BLR-compressed children densified as the solver densifies them, K3/K2
-   on their lossy and dense fronts, K2/K4 on hodlr100's BLR tiles;
+   orderings' (events only, fewer repetitions); then K1 at every call of
+   the rank-structured phases (13-14), on BLR-compressed children
+   densified as the solver densifies them, and every K2, K3 and K4 shape
+   of theirs not checked before: K3/K2 on their lossy and dense fronts,
+   K2/K4 on hodlr100's BLR tiles;
 4. exact32: Poisson 32^3, f32 factor + f32 iterative refinement to 1e-5;
 5. exact64: Poisson 64^3, the same, plus peak device memory;
 6. f64: Poisson 32^3 in float64 (the kernels' double instantiation);
@@ -60,7 +64,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     by events;
 16. helm32_native: the same matrix factored exactly in native complex64
     (refinement to 1e-5) and complex128, K1's complex instantiations
-    bit-exact at every K1 shape of its plan;
+    bit-equal at every K1 call of its plan;
 17. chunked64: exact64's problem with buckets above a 0.5 GB working set
     run in chunks (STRUMPACK_TPU_CHUNK_GB): factors against exact64's,
     peak device memory against exact64's and the model;
@@ -83,9 +87,10 @@ Phases, in order; any failure raises and the script exits non-zero:
     grid fronts' backward errors, residuals, K1-K4 launches against each
     rank's share of the plan (K4: the contiguous layout's grid panels),
     reorder / factor / solve seconds and bytes all-gathered per level
-    (ranks sharing one card: not a scaling measurement); K1 and K3 at each
-    rank's slices and K4 at the grid sub-panels against their plain
-    versions, where phase 3 did not check those shapes;
+    (ranks sharing one card: not a scaling measurement); K1 at every call
+    of each rank's slices, K3 at the slices and K4 at the grid sub-panels
+    against their plain versions, where phase 3 did not check those
+    shapes;
 21. one JSON line {"kernels": [...]}, then the last line
     {"ok": true, "device": {...}}.
 
@@ -142,9 +147,26 @@ def phase(name):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def k1_pairs(pdev):
-    """Three (bucket, pair) of the plan: the smallest, a middle and the
-    largest parent front that has an extend-add pair."""
+def k1_calls(pdev):
+    """(level, bucket, chunk) of every K1 call one factorization of the
+    plan makes: each chunk of each assembled bucket whose fronts take a
+    child's CB (``BucketDev.ea_launches`` counts their launches)."""
+    out = []
+    for li, lvl in enumerate(pdev.levels):
+        for bi, bd in enumerate(lvl):
+            npairs = len(bd.pairsL) + len(bd.pairsR)
+            if bd.bp.hss_sample or not npairs:
+                continue
+            emap, nfc = bd.ea_map(), bd.bp.nf // bd.bp.chunks
+            out += [(li, bi, c) for c in range(bd.bp.chunks)
+                    if emap.launches(c * nfc, (c + 1) * nfc, npairs)]
+    return out
+
+
+def k1_old_picks(pdev):
+    """Three (level, bucket, side, pair) of the plan: the smallest, a
+    middle and the largest parent front that has an extend-add pair (the
+    pairs earlier designs launched one at a time and timed)."""
     cands = []
     for li, lvl in enumerate(pdev.levels):
         for bi, bd in enumerate(lvl):
@@ -152,136 +174,217 @@ def k1_pairs(pdev):
                 for pr in getattr(bd, "pairs" + side):
                     cands.append((bd.bp.p, bd.bp.nf, li, bi, side, pr))
     cands.sort(key=lambda c: (c[0], c[1]))
-    pick = [cands[0], cands[len(cands) // 2], cands[-1]]
-    return pick
+    return [c[2:] for c in (cands[0], cands[len(cands) // 2], cands[-1])]
 
 
-def k1_flat_index(idxn, posn, p, nfc, u, n_f):
-    """The index_add_ form of one K1 pair: the flat index in F of every
-    element of C ([nfc, u, u]), and which elements a front takes.  An
-    element no front takes (padding, a child of another parent bucket) is
-    sent to its own flat position modulo F's size n_f, and the caller
-    zeroes it in C, so it adds +0."""
-    flat = np.arange(nfc * u * u, dtype=np.int64) % n_f
-    taken = np.zeros(nfc * u * u, dtype=bool)
-    for f in np.nonzero(idxn >= 0)[0]:
-        rows = np.nonzero(posn[f] >= 0)[0]
-        a = posn[f, rows].astype(np.int64)
-        src = int(idxn[f]) * u * u + a[:, None] * u + a[None, :]
-        flat[src] = f * p * p + rows[:, None] * p + rows[None, :]
+def k1_flat_index(torch, pairs, posL, posR, nf, p):
+    """The index_add_ form of one K1 call, built on the device: every
+    entry of the call's child blocks (the pairs' C, concatenated) with its
+    flat index in F, and whether a front takes it.  An entry no front
+    takes (padding, a block of another parent bucket) is sent to its own
+    position modulo F's size, and the caller zeroes it, so it adds +0."""
+    n_f = nf * p * p
+    dev = posL.device
+    flats, takens, base = [], [], 0
+    for C, idx, side in pairs:
+        nfc, u = C.shape[0], C.shape[1]
+        pos = (posL, posR)[side].long()
+        flat = (torch.arange(nfc * u * u, device=dev) + base) % n_f
+        taken = torch.zeros(nfc * u * u, dtype=torch.bool, device=dev)
+        f = torch.nonzero(idx >= 0).flatten()
+        ok = pos[f] >= 0                                    # [nsel, p]
+        hit = ok[:, :, None] & ok[:, None, :]               # [nsel, p, p]
+        fi, i, j = torch.nonzero(hit, as_tuple=True)
+        ff = f[fi]
+        src = (idx.long()[ff] * u + pos[ff, i]) * u + pos[ff, j]
+        flat[src] = (ff * p + i) * p + j
         taken[src] = True
-    return flat, taken
+        flats.append(flat)
+        takens.append(taken)
+        base += nfc * u * u
+    return torch.cat(flats), torch.cat(takens)
 
 
-def k1_shapes(pdev):
-    """One (bucket, pair) of every K1 shape a factorization of the plan
-    launches: (nf, p, u, child fronts, compressed child), the child
-    fronts of a BLR-compressed child bucket being the parent's (the
-    solver densifies the blocks the parent reads), with the number of
-    pairs of that shape."""
-    seen = {}
-    for li, lvl in enumerate(pdev.levels):
-        for bi, bd in enumerate(lvl):
-            if bd.bp.hss_sample:
+# K1 yardstick flat indices are built up to this many child entries
+K1_FLAT_MAX = 1 << 28
+# K1 calls whose byte bound passes this many ms are summed apart too
+K1_BIG_MS = 0.05
+
+
+def k1_call(torch, pdev, li, bi, c, dtype, gen, child, kids=None):
+    """The inputs of one K1 call as the solver makes it: F, the pair
+    table, the maps and the map's front offset.  Random fronts and child
+    CBs of ``dtype`` drawn by ``gen`` on the card (``child`` keeps a
+    level's child buckets, {bucket: CBs}); a child bucket that hands on
+    BLR-compressed CBs gives one dense block a parent front, indexed by
+    the pair's ``loc`` (``numeric._ea_pairs``).  ``kids``: the plan the
+    child buckets are read from (default ``pdev``; a rank's shard slices
+    read the whole child buckets, all-gathered)."""
+    bd = pdev.levels[li][bi]
+    bp = bd.bp
+    nfc = bp.nf // bp.chunks
+    f0, f1 = c * nfc, (c + 1) * nfc
+    pairs = []
+    for side, prs in ((0, bd.pairsL), (1, bd.pairsR)):
+        for pr in prs:
+            cb = (kids or pdev).levels[li - 1][pr.bk].bp
+            u = pr.u
+            if cb.cb_comp:
+                pairs.append((torch.randn((nfc, u, u), generator=gen,
+                                          device="cuda", dtype=dtype),
+                              pr.loc[f0:f1], side))
                 continue
-            for side in ("L", "R"):
-                for pr in getattr(bd, "pairs" + side):
-                    comp = bool(pdev.levels[li - 1][pr.bk].bp.cb_comp)
-                    nfc = bd.bp.nf if comp else \
-                        pdev.levels[li - 1][pr.bk].bp.nf
-                    key = (bd.bp.nf, bd.bp.p, pr.u, nfc, comp)
-                    if key not in seen:
-                        seen[key] = [(bd.bp.p, bd.bp.nf, li, bi, side, pr),
-                                     0]
-                    seen[key][1] += 1
-    return seen
+            if pr.bk not in child:
+                child[pr.bk] = torch.randn((cb.nf, u, u), generator=gen,
+                                           device="cuda", dtype=dtype)
+            pairs.append((child[pr.bk], pr.idx[f0:f1], side))
+    F = torch.randn((nfc, bp.p, bp.p), generator=gen, device="cuda",
+                    dtype=dtype)
+    return F, pairs, bd.posL[f0:f1], bd.posR[f0:f1], bd.ea_map(), f0
 
 
-# K1 yardstick flat indices are built on the host up to this many values
-K1_FLAT_MAX = 1 << 26
+def k1_bytes(torch, pairs, posL, posR, itemsize):
+    """K1's byte bound of one call, whatever implements it: each parent
+    element with an addend read and written once, each child entry that
+    lands read once.  Per front, with nL and nR the slots its left and
+    right child fill and nLR those both fill, that is nL^2 + nR^2 - nLR^2
+    elements and nL^2 + nR^2 child entries."""
+    v = [torch.zeros_like(posL, dtype=torch.bool) for _ in range(2)]
+    for _, idx, side in pairs:
+        v[side] |= (idx >= 0)[:, None] & ((posL, posR)[side] >= 0)
+    nL, nR = v[0].sum(1).double(), v[1].sum(1).double()
+    nLR = (v[0] & v[1]).sum(1).double()
+    sq = nL ** 2 + nR ** 2
+    return itemsize * float((2 * (sq - nLR ** 2) + sq).sum())
 
 
-def check_k1(torch, pdev, rng, picks=None, full=True, counts=None,
-             dtype=None, label=None):
-    """K1 against its plain version at ``picks`` (default: k1_pairs), on
-    random F and child blocks of ``dtype`` (default float32): bit-exact,
-    timed by events, with the index_add_ yardstick where its flat index
-    has at most K1_FLAT_MAX values.  A pair whose child bucket hands on BLR-compressed CBs takes
-    one dense block a parent front (``numeric._child_blocks``) and the
-    pair's ``loc`` map, as the solver launches it.  Without ``full`` the
-    times take fewer repetitions; ``counts``: pairs of each pick's
-    shape; ``label``: the records' tag in the log."""
-    from strumpack_tpu_torch.ops.extend_add import extend_add, extend_add_plain
+def check_k1(torch, pdev, rng, calls=None, full=True, dtype=None,
+             label="K1", one_pair=False, kids=None):
+    """K1 against its plain version (``extend_add_bucket_plain``) at
+    ``calls`` (default: ``k1_calls``, every call of one factorization), on
+    random fronts and child blocks of ``dtype`` (default float32): bit-equal
+    (``torch.equal``), timed by events, with the index_add_ yardstick where
+    the call's child blocks have at most K1_FLAT_MAX entries.  With
+    ``one_pair`` the calls are (level, bucket, side, pair) and each runs
+    that pair alone (a table of one), as earlier designs launched it.
+    Without ``full`` the times take fewer repetitions, and the yardstick
+    runs on the calls whose bound passes K1_BIG_MS; ``kids`` as in
+    ``k1_call``.  Returns one record a call; prints the records' sums
+    under ``label``."""
+    from strumpack_tpu_torch.ops.extend_add import (EAMap,
+                                                    extend_add_bucket,
+                                                    extend_add_bucket_plain)
     out = []
-    reps = {} if full else dict(warmup=1, reps=3)
+    # without ``full``: the kernel twice, the plain version once (the
+    # check's calls warmed them), the yardstick on the calls whose bound
+    # passes K1_BIG_MS only
+    reps = {} if full else dict(warmup=0, reps=2)
+    once = {} if full else dict(warmup=0, reps=1)
     dtype = dtype or torch.float32
     itemsize = torch.empty((), dtype=dtype).element_size()
-    if picks is None:
-        picks = k1_pairs(pdev)
-    for n, (p, nf, li, bi, side, pr) in enumerate(picks):
-        bd = pdev.levels[li][bi]
-        cb = pdev.levels[li - 1][pr.bk].bp
-        comp = bool(cb.cb_comp)
-        u = pr.u
-        nfc = nf if comp else cb.nf
-        idx = pr.loc if comp else pr.idx
-        pos = getattr(bd, "pos" + side)
-        # drawn on the card: hodlr100's fronts reach 2 GB
-        gen = torch.Generator(device="cuda").manual_seed(
-            int(rng.integers(2 ** 31)))
-        F = torch.randn((nf, p, p), generator=gen, device="cuda",
-                        dtype=dtype)
-        C = torch.randn((nfc, u, u), generator=gen, device="cuda",
-                        dtype=dtype)
-        Fk = extend_add(F.clone(), C, idx, pos)
-        Fp = extend_add_plain(F.clone(), C, idx, pos)
+    eps = torch.finfo(dtype).eps
+    gen = torch.Generator(device="cuda").manual_seed(
+        int(rng.integers(2 ** 31)))
+    if calls is None:
+        calls = k1_calls(pdev)
+    child, child_level = {}, None
+    for call in calls:
+        li, bi = call[:2]
+        if li != child_level:
+            child, child_level = {}, li
+            torch.cuda.empty_cache()
+        if one_pair:
+            side, pr = call[2:]
+            bd = pdev.levels[li][bi]
+            pos = getattr(bd, "pos" + side)
+            comp = bool(pdev.levels[li - 1][pr.bk].bp.cb_comp)
+            nfc = bd.bp.nf if comp else pdev.levels[li - 1][pr.bk].bp.nf
+            idx = pr.loc if comp else pr.idx
+            C = torch.randn((nfc, pr.u, pr.u), generator=gen, device="cuda",
+                            dtype=dtype)
+            F = torch.randn((bd.bp.nf, bd.bp.p, bd.bp.p), generator=gen,
+                            device="cuda", dtype=dtype)
+            pairs, posL, posR, f0 = [(C, idx, 0)], pos, pos, 0
+            emap = EAMap(pos, pos, (idx >= 0).cpu().numpy(),
+                         np.zeros(len(idx), bool))
+            nchunk = 1
+        else:
+            F, pairs, posL, posR, emap, f0 = k1_call(torch, pdev, li, bi,
+                                                     call[2], dtype, gen,
+                                                     child, kids)
+            nchunk = pdev.levels[li][bi].bp.chunks
+        nf, p = F.shape[0], F.shape[1]
+
+        def kern(Fw):
+            return extend_add_bucket(Fw, pairs, posL, posR, emap, f0)
+
+        def plain(Fw):
+            return extend_add_bucket_plain(Fw, pairs, posL, posR)
+
+        n0 = extend_add_bucket.launches
+        Fk = kern(F.clone())
+        launches = extend_add_bucket.launches - n0
+        Fp = plain(F.clone())
         torch.cuda.synchronize()
         err = float((Fk - Fp).abs().max())
-        check(torch.equal(Fk, Fp), f"K1 bit-exact at p={p} u={u} nf={nf} "
-              f"nfc={nfc} compressed child {comp} {dtype}")
+        where = (f"level {li} bucket {bi} nf={nf} p={p} pairs={len(pairs)} "
+                 f"u={[C.shape[1] for C, _, _ in pairs]} {dtype}")
+        check(torch.equal(Fk, Fp), f"K1 bit-equal to the plain version at "
+              f"{where}")
+        check(launches == emap.launches(f0, f0 + nf, len(pairs)),
+              f"K1 launches at {where}")
         del Fp
-        # bound: each touched element of F read and written once, its
-        # addend read once, plus the maps of the fronts that have a child
-        posn = pos.cpu().numpy()
-        idxn = idx.cpu().numpy()
-        nval = ((posn >= 0) & (idxn >= 0)[:, None]).sum(axis=1)
-        nbytes = (3 * itemsize * int((nval.astype(np.int64) ** 2).sum())
-                  + 4 * p * int((idxn >= 0).sum()) + 4 * nf)
+        nbytes = k1_bytes(torch, pairs, posL, posR, itemsize)
         Fw = F.clone()
-        ms = cuda_ms(lambda: extend_add(Fw, C, idx, pos), torch, **reps)
+        ms = cuda_ms(lambda: kern(Fw), torch, **reps)
+        # the kernel alone (profiler device time) where the times are full
+        kernel_ms = (device_ms(torch, lambda: kern(Fw), "extend_add_bucket",
+                               reps=5) if full else None)
         Fw = F.clone()
-        plain = cuda_ms(lambda: extend_add_plain(Fw, C, idx, pos), torch,
-                        **reps)
+        plain_ms = cuda_ms(lambda: plain(Fw), torch, **once)
         lib = None
-        if nfc * u * u <= K1_FLAT_MAX:
-            # yardstick: one index_add_ over flat indices built here,
-            # outside the timed call; exact, since the pos maps are
-            # injective
-            flat, taken = k1_flat_index(idxn, posn, p, nfc, u, F.numel())
-            flat = torch.from_numpy(flat).cuda()
-            Cz = C.clone()
-            Cz.view(-1)[torch.from_numpy(~taken).cuda()] = 0.0
+        if (sum(C.numel() for C, _, _ in pairs) <= K1_FLAT_MAX
+                and (full or nbytes / PEAK_BYTES * 1e3 >= K1_BIG_MS)):
+            # yardstick: one index_add_ over a flat index built here,
+            # outside the timed call; where both children feed an element
+            # its atomics add the two in either order, so it equals K1 to
+            # the rounding of one add
+            flat, taken = k1_flat_index(torch, pairs, posL, posR, nf, p)
+            Cz = torch.cat([C.reshape(-1) for C, _, _ in pairs])
+            Cz[~taken] = 0
             Fl = F.clone()
-            Fl.view(-1).index_add_(0, flat, Cz.view(-1))
-            check(torch.equal(Fl, Fk),
-                  f"K1 index_add_ yardstick equals K1 at p={p}")
+            Fl.view(-1).index_add_(0, flat, Cz)
+            scale = float(F.abs().max()) + 2 * float(Cz.abs().max())
+            check(float((Fl - Fk).abs().max()) <= 4 * eps * scale,
+                  f"K1 index_add_ yardstick equals K1 to rounding at {where}")
             Fw = F.clone()
-            lib = cuda_ms(lambda: Fw.view(-1).index_add_(0, flat,
-                                                         Cz.view(-1)),
-                          torch, **reps)
+            lib = cuda_ms(lambda: Fw.view(-1).index_add_(0, flat, Cz),
+                          torch, **once)
             del flat, Cz, Fl
-        rec = dict(p=p, u=u, nf=nf, nfc=nfc, level=li, bucket=bi, side=side,
-                   compressed_child=comp, dtype=str(dtype).split(".")[-1],
-                   max_abs_err=err, ms=ms,
-                   plain_ms=plain, bound_ms=nbytes / PEAK_BYTES * 1e3,
+        rec = dict(level=li, bucket=bi, chunk=None if one_pair else call[2],
+                   chunks=nchunk, nf=nf, p=p, pairs=len(pairs),
+                   u=sorted({C.shape[1] for C, _, _ in pairs}),
+                   tiles=int(emap.tile_ptr[f0 + nf] - emap.tile_ptr[f0]),
+                   launches=launches, dtype=str(dtype).split(".")[-1],
+                   max_abs_err=err, ms=ms, kernel_ms=kernel_ms,
+                   plain_ms=plain_ms, bound_ms=nbytes / PEAK_BYTES * 1e3,
                    bound_by="bytes", library_ms=lib)
-        if counts is not None:
-            rec["pairs"] = counts[n]
-        tag = label or ("K1" if full else "K1-structured"
-                        if not dtype.is_complex else "K1-complex")
-        print(tag, json.dumps(rec), flush=True)
         out.append(rec)
-        del F, C, Fk, Fw
+        del F, Fk, Fw, pairs
+    sums = {k: sum(r[k] for r in out) for k in ("ms", "plain_ms",
+                                                 "bound_ms")}
+    # the calls whose bound passes K1_BIG_MS, apart
+    big = [r for r in out if r["bound_ms"] >= K1_BIG_MS]
+    print(label, json.dumps(dict(
+        calls=len(out), launches=sum(r["launches"] for r in out),
+        kernel_ms=(sum(r["kernel_ms"] for r in out) if full and all(
+            r["kernel_ms"] is not None for r in out) else None),
+        library_ms=sum(r["library_ms"] for r in out
+                       if r["library_ms"] is not None),
+        library_missing=sum(r["library_ms"] is None for r in out),
+        big_calls=len(big), big_ms=sum(r["ms"] for r in big),
+        big_bound_ms=sum(r["bound_ms"] for r in big), **sums)), flush=True)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -731,10 +834,10 @@ def blr_shapes(pdev, dtype):
 # ---------------------------------------------------------------------------
 
 def _wrappers():
-    from strumpack_tpu_torch.ops.extend_add import extend_add
+    from strumpack_tpu_torch.ops.extend_add import extend_add_bucket
     from strumpack_tpu_torch.ops.front_lu import factor_bucket, partial_factor
     from strumpack_tpu_torch.ops.panel_lu import panel_lu
-    return dict(extend_add=extend_add, front_lu_cross=partial_factor,
+    return dict(extend_add=extend_add_bucket, front_lu_cross=partial_factor,
                 small_lu=factor_bucket, panel_lu=panel_lu)
 
 
@@ -929,24 +1032,15 @@ def make_structured(name):
 
 
 def structured_checks(torch, rng, plans, k3_done, k2_done, k4_done):
-    """Every K1, K3, K2 and K4 shape of the rank-structured phases
-    ({name: PlanDev}) not checked before: K1 at each shape of every
-    assembled bucket's pairs (once across the phases), K3/K2 at their
-    dense and lossy fronts (f32, pivoting), K2/K4 at hodlr100's BLR tile
-    LUs."""
+    """K1 at every call of the rank-structured phases ({name: PlanDev}),
+    on BLR-compressed children densified as the solver densifies them,
+    and every K3, K2 and K4 shape of theirs not checked before: K3/K2 at
+    their dense and lossy fronts (f32, pivoting), K2/K4 at hodlr100's BLR
+    tile LUs."""
     from strumpack_tpu_torch.ops import panel_lu as PP
-    k1, k1_done = [], set()
+    k1 = []
     for name, pdev in plans.items():
-        shapes = k1_shapes(pdev)
-        print(f"{name}: {len(shapes)} K1 shapes, "
-              f"{sum(n for _, n in shapes.values())} pairs", flush=True)
-        new = sorted(k for k in shapes if k not in k1_done)
-        k1_done.update(new)
-        picks = [shapes[k][0] for k in new]
-        counts = [shapes[k][1] for k in new]
-        k1 += check_k1(torch, rng=rng, pdev=pdev, picks=picks, full=False,
-                       counts=counts)
-        torch.cuda.empty_cache()
+        k1 += check_k1(torch, pdev, rng, full=False, label=f"K1-{name}")
     k3, k2 = general_checks(torch, rng, plans, k3_done, k2_done,
                             groups=(("float32", True, tuple(plans)),))
     k4 = []
@@ -1048,7 +1142,7 @@ def compare_factors(torch, ref, fac, plan):
 def plan_launches(pdev, dtype):
     """Kernel wrapper -> the plan's launches of one factorization in
     ``dtype``."""
-    return dict(extend_add=pdev.ea_pairs(),
+    return dict(extend_add=pdev.ea_launches(),
                 front_lu_cross=pdev.k3_buckets(dtype),
                 small_lu=pdev.k2_launches(dtype),
                 panel_lu=pdev.k4_launches(dtype))
@@ -1213,7 +1307,7 @@ def run_solver(torch, name, A, s, t_reorder, seed, res_tol=None,
 
 # profiler rows by kernel name, in this order (first match wins)
 KERNEL_GROUPS = (
-    ("K1 extend_add", ("extend_add_kernel",)),
+    ("K1 extend_add", ("extend_add_bucket_kernel",)),
     ("K3 lu_cross", ("lu_cross_kernel",)),
     ("K2 small_lu", ("small_lu_kernel",)),
     ("K4 panel_lu", ("panel_lu_reg", "panel_lu_global")),
@@ -1456,14 +1550,9 @@ def complex_phases(torch, rng, runs, main_run, s64, profile="svd"):
     for name in COMPLEX_PHASES[1:]:
         A, s, t, b = make_complex(name)
         dt = getattr(torch, s.opts.factor_dtype)
-        # K1's complex instantiation at every K1 shape of the plan
-        shapes = k1_shapes(s.pdev)
-        new = sorted(shapes)
-        k1_cx += check_k1(torch, s.pdev, rng, picks=[shapes[k][0]
-                                                     for k in new],
-                          full=False, counts=[shapes[k][1] for k in new],
-                          dtype=dt)
-        print(f"{name}: K1 bit-exact at {len(new)} {dt} shapes", flush=True)
+        # K1's complex instantiation at every K1 call of the plan
+        k1_cx += check_k1(torch, s.pdev, rng, full=False, dtype=dt,
+                          label=f"K1-{name}")
         c64 = name == "helm32_c64"
         runs[name] = run_solver(torch, name, A, s, t, seed=0, b=b,
                                 res_tol=1e-4 if c64 else None,
@@ -1965,41 +2054,30 @@ def shard_against(torch, s64, bounds, shard):
 
 
 def dist_checks(torch, rng, s64, k3_done, k4_done):
-    """K1, K3 and K4 at the shapes dist64 (b) launches that the checks
-    before did not cover: K1 and K3 at each rank's slices of the shard
-    buckets (the child CBs whole: they are all-gathered), K4 at the
-    contiguous grid layout's sub-panels of the grid buckets.  Returns
-    (K1, K3, K4 records)."""
+    """K1 at every call of each rank's slices of the shard buckets in
+    dist64 (b) (the child CBs whole: they are all-gathered), and K3 and K4
+    at the shapes it launches that the checks before did not cover: K3 at
+    the slices, K4 at the contiguous grid layout's sub-panels of the grid
+    buckets.  Returns (K1, K3, K4 records)."""
     import types
     from strumpack_tpu_torch.ops import front_lu as FL
     from strumpack_tpu_torch.ops import panel_lu as PP
     from strumpack_tpu_torch.parallel import spmd
     from strumpack_tpu_torch.parallel.dist2d import _grid_blk, panel_route
     full = s64.pdev
-    k1_done = set(k1_shapes(full))
     k1, k3, k4 = [], [], []
     for r in range(DIST_RANKS):
         sp = spmd.ShardedPlan(full, types.SimpleNamespace(ndev=DIST_RANKS,
                                                           me=r))
+        # the plan with this rank's slices in the shard buckets' places
+        view = object.__new__(type(full))
+        view.levels = [[sp.bucket(li, bi) for bi in range(len(lvl))]
+                       for li, lvl in enumerate(full.levels)]
+        k1 += check_k1(torch, view, rng, full=False, label=f"K1-dist-rank{r}",
+                       calls=[c for c in k1_calls(view)
+                              if c[:2] in sp.local], kids=full)
         for (li, bi), lb in sorted(sp.local.items()):
             bp = lb.bp
-            for side in ("L", "R"):
-                for pr in getattr(lb, "pairs" + side):
-                    comp = bool(full.levels[li - 1][pr.bk].bp.cb_comp)
-                    nfc = bp.nf if comp else \
-                        full.levels[li - 1][pr.bk].bp.nf
-                    key = (bp.nf, bp.p, pr.u, nfc, comp)
-                    if key in k1_done:
-                        continue
-                    k1_done.add(key)
-                    # the plan with this rank's slice in the bucket's place
-                    view = object.__new__(type(full))
-                    view.levels = list(full.levels)
-                    view.levels[li] = list(full.levels[li])
-                    view.levels[li][bi] = lb
-                    k1 += check_k1(torch, rng=rng, pdev=view, full=False,
-                                   picks=[(bp.p, bp.nf, li, bi, side, pr)],
-                                   label="K1-dist")
             if (bp.s_pad and FL.use_cross(bp.s_pad, bp.p, torch.float32)
                     and (bp.nf, bp.p, bp.s_pad, "float32", True)
                     not in k3_done):
@@ -2248,7 +2326,17 @@ def main():
               + (f", matching {s_.times['matching']:.2f} s"
                  if "matching" in s_.times else ""), flush=True)
     rng = np.random.default_rng(20261016)
-    k1 = check_k1(torch, s64.pdev, rng)
+    # K1 at every call of exact64's factorization, and the three pairs
+    # earlier designs timed one launch each, as tables of one
+    k1 = check_k1(torch, s64.pdev, rng, label="K1-exact64")
+    k1_pairs = check_k1(torch, s64.pdev, rng, calls=k1_old_picks(s64.pdev),
+                        one_pair=True, label="K1-exact64-pairs")
+    # and at every call of the general-input phases, in their factor dtype
+    k1_gen = []
+    for name, (_, s_, _) in general.items():
+        k1_gen += check_k1(torch, s_.pdev, rng, full=False,
+                           dtype=getattr(torch, s_.opts.factor_dtype),
+                           label=f"K1-{name}")
     # K3 at every shape a path launches and at every dense library shape
     # of p > 64, s <= 128 it can hold (the routing table), f32 on the f32
     # paths, f64 on f64_32's
@@ -2448,6 +2536,7 @@ def main():
     print("K4-blocked", json.dumps(blocked))
     print("K3-general", json.dumps(k3_gen))
     print("K2-general", json.dumps(k2_gen))
+    print("K1-pairs", json.dumps(k1_pairs))
     print("K1-structured", json.dumps(k1_st))
     print("K3-structured", json.dumps(k3_st))
     print("K2-structured", json.dumps(k2_st))
@@ -2504,11 +2593,15 @@ def main():
             e[key] = None if None in vals else sum(vals)
         return e
 
+    k1_entry = entry("extend_add", "strumpack_tpu_torch/csrc/extend_add.cu",
+                     "strumpack_tpu/ops/pallas_extadd.py:204", main_run,
+                     "extend_add", k1, general=k1_gen, structured=k1_st,
+                     complex_=k1_cx, dist=k1_ds)
+    # the kernel alone (profiler) beside the events' kernel + wrapper
+    k1_entry["kernel_ms"] = (None if any(r["kernel_ms"] is None for r in k1)
+                             else sum(r["kernel_ms"] for r in k1))
     kernels = [
-        entry("extend_add", "strumpack_tpu_torch/csrc/extend_add.cu",
-              "strumpack_tpu/ops/pallas_extadd.py:204", main_run,
-              "extend_add", k1, structured=k1_st, complex_=k1_cx,
-              dist=k1_ds),
+        k1_entry,
         k3_entry(entry("front_lu_cross", "strumpack_tpu_torch/csrc/front_lu.cu",
                        "strumpack_tpu/ops/pallas_lu.py:286", main_run,
                        "front_lu_cross", k3, k3_gen, k3_st, dist=k3_ds)),

@@ -7,8 +7,9 @@ level-batched traversal (FrontGPU.cpp:470-640) and the two-phase solve
 ``strumpack_tpu/frontal/numeric.py``, run as plain eager level sweeps:
 
 * per bucket of identity-padded fronts: one scatter-add of A's values,
-  extend-add of the children's contribution blocks (kernel K1,
-  ``ops/extend_add.py``), and a batched partial LU routed by shape
+  extend-add of the children's contribution blocks (kernel K1, one
+  launch for both children and every child bucket, ``ops/extend_add.py``),
+  and a batched partial LU routed by shape
   (kernels K2 and K3 or the library route, ``ops/front_lu.py``), with or
   without pivoting; or the partial Cholesky of SPD fronts, derived from
   the no-pivot K3/K2 outputs where they hold the front; or for BLR
@@ -52,7 +53,7 @@ import torch
 from .plan import BucketPlan, LevelPlan
 from ..ops import front_lu as FL
 from ..ops import panel_lu as PP
-from ..ops.extend_add import extend_add
+from ..ops.extend_add import EAMap, extend_add_bucket
 
 # Factor calls per route, counted at every factorization (a bucket makes
 # one call, a chunked bucket one a chunk): "k3" and "k2" calls launch those
@@ -131,6 +132,28 @@ class BucketDev:
                          _idx(bp.samp["samp_ellT_vidx"], device))
         self.pairsL: list[CBPair] = []
         self.pairsR: list[CBPair] = []
+        self._ea_map = None
+
+    def ea_map(self):
+        """K1's work map of the bucket (``ops/extend_add.EAMap``), built
+        on the plan's device at first use and kept."""
+        if self._ea_map is None:
+            self._ea_map = EAMap(self.posL, self.posR, self.bp.hasL,
+                                 self.bp.hasR)
+        return self._ea_map
+
+    def ea_launches(self):
+        """K1 launches of one factorization of the bucket: one a chunk
+        whose fronts take a child's CB (one per ``EA_MAX_PAIRS`` pairs);
+        none for sampled fronts, which read their children's CBs through
+        products."""
+        npairs = len(self.pairsL) + len(self.pairsR)
+        if self.bp.hss_sample or not npairs:
+            return 0
+        m = self.ea_map()
+        nfc = self.bp.nf // self.bp.chunks
+        return sum(m.launches(c * nfc, (c + 1) * nfc, npairs)
+                   for c in range(self.bp.chunks))
 
 
 class PlanDev:
@@ -177,14 +200,11 @@ class PlanDev:
                             CBPair(j, u, idx, pos, self.device,
                                    bp.nf // bp.chunks))
 
-    def ea_pairs(self):
-        """Number of (bucket, side, child bucket) extend-add pairs of the
-        assembled buckets, once a chunk of a chunked bucket: the K1
-        launches of one factorization (sampled fronts read their
-        children's CBs through products instead)."""
-        return sum((len(bd.pairsL) + len(bd.pairsR)) * bd.bp.chunks
-                   for lvl in self.levels for bd in lvl
-                   if not bd.bp.hss_sample)
+    def ea_launches(self):
+        """K1 launches of one factorization: one a chunk of each
+        assembled bucket whose fronts take a child's CB
+        (``BucketDev.ea_launches``)."""
+        return sum(bd.ea_launches() for lvl in self.levels for bd in lvl)
 
     def factor_calls(self):
         """(factor calls, calls of empty-separator buckets) of one
@@ -357,21 +377,21 @@ def _child_blocks(entry, idx):
     return C * (idx >= 0).to(C.dtype)[:, None, None]
 
 
-def _extend_add_blocks(F, cb_list, pos, pairs, f0=0):
-    """Extend-add from per-bucket child CB arrays: one K1 call per
-    contributing child bucket (F updated in place).  F holds the fronts
-    f0.. of the bucket (a chunk), ``pos`` their rows of the map.  A
+def _ea_pairs(bd, cb_list, f0, f1):
+    """K1's pair table of the fronts f0..f1 of a bucket, in plan order (L
+    pairs, then R): (child CBs, block of each front, side).  A
     BLR-compressed child bucket is densified for the fronts that read it
-    first."""
-    f1 = f0 + F.shape[0]
-    for pr in pairs:
-        entry = cb_list[pr.bk]
-        if isinstance(entry, BLRCB):
-            extend_add(F, _child_blocks(entry, pr.idx[f0:f1]).contiguous(),
-                       pr.loc[f0:f1], pos)
-        else:
-            extend_add(F, entry, pr.idx[f0:f1], pos)
-    return F
+    (one block a front, indexed by the pair's ``loc``)."""
+    out = []
+    for side, pairs in ((0, bd.pairsL), (1, bd.pairsR)):
+        for pr in pairs:
+            entry = cb_list[pr.bk]
+            if isinstance(entry, BLRCB):
+                out.append((_child_blocks(entry, pr.idx[f0:f1]).contiguous(),
+                            pr.loc[f0:f1], side))
+            else:
+                out.append((entry, pr.idx[f0:f1], side))
+    return out
 
 
 def _quantize(x, bits):
@@ -777,10 +797,9 @@ def _assemble(bd, vals_ext, cb_list, asm_lin, asm_vidx, f0, f1):
     # scatter-add gives every element exactly one addend
     F.index_add_(0, asm_lin, vals_ext[asm_vidx])
     F = F.view(nf, bp.p, bp.p)
-    if bd.has_L:
-        _extend_add_blocks(F, cb_list, bd.posL[f0:f1], bd.pairsL, f0)
-    if bd.has_R:
-        _extend_add_blocks(F, cb_list, bd.posR[f0:f1], bd.pairsR, f0)
+    if bd.has_L or bd.has_R:
+        extend_add_bucket(F, _ea_pairs(bd, cb_list, f0, f1),
+                          bd.posL[f0:f1], bd.posR[f0:f1], bd.ea_map(), f0)
     return F
 
 

@@ -9,6 +9,7 @@ NumPy implementation.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 
@@ -28,14 +29,18 @@ def _load():
         return _lib
     _tried = True
     try:
-        if (not os.path.exists(_SO)
-                or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
-            tmp = f"{_SO}.{os.getpid()}.tmp"
-            subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-                 _SRC, "-o", tmp],
-                check=True, capture_output=True)
-            os.replace(tmp, _SO)  # concurrent loaders never see half a file
+        # one process builds; the others that start meanwhile wait for it
+        # instead of compiling the same library
+        with open(_SO + ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if (not os.path.exists(_SO)
+                    or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
+                tmp = f"{_SO}.{os.getpid()}.tmp"
+                subprocess.run(
+                    ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+                     _SRC, "-o", tmp],
+                    check=True, capture_output=True)
+                os.replace(tmp, _SO)  # loaders never see half a file
         lib = ctypes.CDLL(_SO)
     except (OSError, subprocess.CalledProcessError):
         return None

@@ -262,6 +262,8 @@ def slice_bucket(bd, f0, f1):
                  if bool((q.idx[sl] >= 0).any())] if lb.has_L else []
     lb.pairsR = [_slice_pair(q, f0, f1) for q in bd.pairsR
                  if bool((q.idx[sl] >= 0).any())] if lb.has_R else []
+    lb._ea_map = (bd.ea_map().slice(f0, f1) if lb.pairsL or lb.pairsR
+                  else None)
     return lb
 
 
@@ -324,7 +326,7 @@ class ShardedPlan:
     def launch_share(self, dtype):
         """K1-K4 launches this rank makes in one factorization in
         ``dtype``, from the plan: the single-device counts
-        (``PlanDev.ea_pairs``, ``k3_buckets``, ``k2_launches``,
+        (``PlanDev.ea_launches``, ``k3_buckets``, ``k2_launches``,
         ``k4_launches``) over its shard slices and the repl buckets, the
         grid buckets' replicated assembly (K1) and, in the contiguous
         layout, their K4 sub-panels."""
@@ -332,14 +334,15 @@ class ShardedPlan:
         view.levels = [[self.bucket(li, bi) for bi in range(len(lvl))
                         if self.modes[(li, bi)] != "grid"]
                        for li, lvl in enumerate(self.pdev.levels)]
-        k1 = numeric.PlanDev.ea_pairs(view)
+        k1 = numeric.PlanDev.ea_launches(view)
         k4 = numeric.PlanDev.k4_launches(view, dtype)
         from .dist2d import _grid_blk, panel_route
         for (li, bi), mode in self.modes.items():
             if mode != "grid":
                 continue
             bd = self.pdev.levels[li][bi]
-            k1 += len(bd.pairsL) + len(bd.pairsR)
+            k1 += bd.ea_map().launches(0, bd.bp.nf, len(bd.pairsL)
+                                       + len(bd.pairsR))
             bp = bd.bp
             if use_cyclic(bp, self.grid):
                 continue

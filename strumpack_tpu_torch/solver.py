@@ -70,9 +70,13 @@ def _order(opts, Asym):
     The METIS-family names take the native multilevel bisection (HEM
     coarsening + FM + vertex-cover separators), ND/AND the native BFS
     level-set bisection (ANDSparspak role); the parallel names
-    (PARMETIS, PTSCOTCH) take the same single-process multilevel
-    splitter.  RCM, AMD, MMD and MLF orderings get their tree from the
-    etree, with relaxed amalgamation composed into the permutation."""
+    (PARMETIS, PTSCOTCH) run the distributed-work nested dissection with
+    the multilevel splitter across the ranks of ``torch.distributed``
+    when it is initialized with more than one rank
+    (``sparse/ordering/nd_dist.py``; every rank must reorder), and the
+    single-process one otherwise.  RCM, AMD, MMD and MLF orderings get
+    their tree from the etree, with relaxed amalgamation composed into
+    the permutation."""
     R = ReorderingStrategy
     m = opts.reordering_method
     n = Asym.n
@@ -81,8 +85,11 @@ def _order(opts, Asym):
         return geometric_nd(opts.nx, opts.ny, opts.nz,
                             components=opts.components,
                             width=opts.separator_width, leaf=opts.nd_leaf)
-    if m in (R.ND, R.AND, R.METIS, R.PARMETIS, R.SCOTCH, R.PTSCOTCH,
-             R.SPECTRAL):
+    if m in (R.PARMETIS, R.PTSCOTCH):
+        from .sparse.ordering.nd_dist import nested_dissection_distributed
+        return nested_dissection_distributed(Asym.rowptr, Asym.colind, n,
+                                             leaf=opts.nd_leaf)
+    if m in (R.ND, R.AND, R.METIS, R.SCOTCH, R.SPECTRAL):
         from .sparse.ordering.nd import nested_dissection
         splitter = {R.ND: "bfs", R.AND: "bfs",
                     R.SPECTRAL: "spectral"}.get(m, "ml")

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 import torch_ref  # noqa: F401  (one torch thread a test worker)
+from torch_ref import jax_split_programs  # noqa: F401  (autouse)
 
 import strumpack_tpu as sj
 from strumpack_tpu.frontal import numeric as sj_numeric

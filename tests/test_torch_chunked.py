@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from torch_ref import assert_flags_identical, solver_pair
+from torch_ref import jax_split_programs  # noqa: F401  (autouse)
 
 from strumpack_tpu.sparse.gen import poisson2d, poisson3d
 
@@ -53,7 +54,7 @@ def test_chunked_plan_and_solve(case, monkeypatch):
     chunked factorization against the unchunked one: dense bit for bit
     (factors and solution, residual < 1e-12), BLR with compressed CBs
     (to the JAX test's gate) and HODBF fronts (their factor chains
-    concatenated chunk by chunk) to 1e-12; factor calls and K1 pairs one
+    concatenated chunk by chunk) to 1e-12; factor calls and K1 launches one
     a chunk; the peak model not above the unchunked one."""
     A = poisson3d(12)
     b = A.spmv(np.ones(A.n))
@@ -74,7 +75,7 @@ def test_chunked_plan_and_solve(case, monkeypatch):
         assert calls == port.pdev.factor_calls()[0]
         runs[cap] = (x, port)
     (x, port), (x1, port1) = runs["0.001"], runs["100"]
-    assert port.pdev.ea_pairs() > port1.pdev.ea_pairs()
+    assert port.pdev.ea_launches() > port1.pdev.ea_launches()
     assert (NT.factor_peak_bytes(port.pdev, 8)
             <= NT.factor_peak_bytes(port1.pdev, 8))
     res = np.linalg.norm(A.spmv(x) - b) / np.linalg.norm(b)

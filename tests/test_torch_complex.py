@@ -17,6 +17,7 @@ import torch
 
 from torch_ref import assert_flags_identical, solve_on_jax_factors, \
     solver_pair
+from torch_ref import jax_split_programs  # noqa: F401  (autouse)
 
 from strumpack_tpu.frontal import numeric as NJ
 from strumpack_tpu.krylov import solvers as KJ

@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 from torch_ref import assert_flags_identical, solve_on_jax_factors, \
     solver_pair
+from torch_ref import jax_split_programs  # noqa: F401  (autouse)
 
 from strumpack_tpu.frontal import numeric as NJ
 from strumpack_tpu.ops import aca as AJ
@@ -21,6 +22,7 @@ import strumpack_tpu_torch as st
 from strumpack_tpu_torch.frontal import numeric as NT
 from strumpack_tpu_torch.interop import blrcb_from_numpy
 from strumpack_tpu_torch.ops import aca as AT
+from strumpack_tpu_torch.ops.extend_add import extend_add_bucket_plain
 
 ERROR_TOL = 1e2   # tests/test_sparse_seq.py:16
 
@@ -79,6 +81,14 @@ def test_compressed_cb_matches_jax():
                                   dt[[1, 0, 1]])
 
 
+def _extend_add_pair(F, entry, pr, pos):
+    """K1's plain version of the one pair ``pr`` of a bucket, its child
+    bucket's CBs ``entry``: the pair table ``numeric._ea_pairs`` makes."""
+    one = type("OnePair", (), dict(pairsL=[pr], pairsR=[]))
+    pairs = NT._ea_pairs(one, [None] * pr.bk + [entry], 0, F.shape[0])
+    return extend_add_bucket_plain(F, pairs, pos, pos)
+
+
 def test_extend_add_of_compressed_child():
     """Extend-add from a BLR-compressed child bucket densifies the blocks
     its parent reads and extend-adds them with the pair's own map: the
@@ -103,11 +113,9 @@ def test_extend_add_of_compressed_child():
                 comp = NT._compress_cb(CB, child.cb_comp, 1e-8, 16)
                 F = torch.from_numpy(rng.standard_normal(
                     (bd.bp.nf, bd.bp.p, bd.bp.p)))
-                got = NT._extend_add_blocks(F.clone(), [None] * pr.bk
-                                            + [comp], pos, [pr])
-                want = NT._extend_add_blocks(F.clone(), [None] * pr.bk
-                                             + [NT._cb_dense(comp)], pos,
-                                             [pr])
+                got = _extend_add_pair(F.clone(), comp, pr, pos)
+                want = _extend_add_pair(F.clone(), NT._cb_dense(comp), pr,
+                                        pos)
                 assert torch.equal(got, want)
                 done += 1
     assert done > 0

@@ -12,7 +12,9 @@ import torch
 
 from strumpack_tpu_torch.ops import front_lu as FL
 from strumpack_tpu_torch.ops import panel_lu as PP
-from strumpack_tpu_torch.ops.extend_add import extend_add, extend_add_plain
+from strumpack_tpu_torch.ops.extend_add import (EA_MAX_PAIRS, EAMap,
+                                                extend_add_bucket,
+                                                extend_add_bucket_plain)
 
 
 @pytest.fixture
@@ -30,6 +32,14 @@ def _random_pos(rng, nf, p, u):
     return pos
 
 
+def _one_pair(F, C, idx, pos):
+    """K1 on one pair (its table of one, side 0): (kernel, plain)."""
+    emap = EAMap(pos, pos, (idx >= 0).cpu().numpy(), np.zeros(len(idx), bool))
+    pairs = [(C, idx, 0)]
+    return (extend_add_bucket(F.clone(), pairs, pos, pos, emap),
+            extend_add_bucket_plain(F.clone(), pairs, pos, pos))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
                                    torch.complex64, torch.complex128])
@@ -42,10 +52,74 @@ def test_extend_add_kernel_bit_exact(cuda_device, dtype):
         idx = torch.from_numpy(idx).to(cuda_device)
         C = torch.randn(nfc, u, u, dtype=dtype, device=cuda_device)
         F = torch.randn(nf, p, p, dtype=dtype, device=cuda_device)
-        before = extend_add.launches
-        got = extend_add(F.clone(), C, idx, pos)
-        assert extend_add.launches == before + 1
-        assert torch.equal(got, extend_add_plain(F.clone(), C, idx, pos))
+        before = extend_add_bucket.launches
+        got, want = _one_pair(F, C, idx, pos)
+        assert extend_add_bucket.launches == before + 1
+        assert torch.equal(got, want)
+
+
+def _mixed_table(rng, dev, dtype, nf, p, npairs):
+    """A pair table of ``npairs`` pairs, sides mixed, child buckets of
+    several u and block counts: each front takes a block from about a
+    third of the pairs (some fronts from none, many from both sides and
+    from several pairs of a side), with posL, posR and the sides' flags."""
+    posL = torch.from_numpy(_random_pos(rng, nf, p, p // 2)).to(dev)
+    posR = torch.from_numpy(_random_pos(rng, nf, p, p // 3)).to(dev)
+    hasL, hasR = np.zeros(nf, bool), np.zeros(nf, bool)
+    pairs = []
+    for k in range(npairs):
+        side = int(rng.integers(2))
+        u = (p // 2, p // 3)[side]
+        nfc = int(rng.integers(1, 2 * nf + 1))
+        idx = rng.integers(0, nfc, nf).astype(np.int32)
+        idx[rng.random(nf) < 2 / 3] = -1
+        idx[0] = -1 if k else idx[0]       # front 0 fed by pair 0 at most
+        (hasL, hasR)[side][idx >= 0] = True
+        pairs.append((torch.randn(nfc, u, u, dtype=dtype, device=dev),
+                      torch.from_numpy(idx).to(dev), side))
+    return pairs, posL, posR, hasL, hasR
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex64, torch.complex128])
+def test_extend_add_bucket_mixed_tables(cuda_device, dtype):
+    """One launch a bucket chunk against the pair-by-pair plain version,
+    bit for bit, at mixed pair tables: short ones (one launch) and one
+    longer than a launch takes (split in table order); p a multiple of the
+    column group (16-byte vectors) and not, and F off 16-byte alignment
+    (element by element); the whole bucket, its chunks (the map's front
+    offset) and a shard slice (``EAMap.slice``)."""
+    rng = np.random.default_rng(13)
+    for nf, p, npairs in ((6, 40, 3), (5, 37, 5), (3, 130, 2 * EA_MAX_PAIRS
+                                                    + 3)):
+        pairs, posL, posR, hasL, hasR = _mixed_table(rng, cuda_device, dtype,
+                                                     nf, p, npairs)
+        emap = EAMap(posL, posR, hasL, hasR)
+        F = torch.randn(nf, p, p, dtype=dtype, device=cuda_device)
+        want = extend_add_bucket_plain(F.clone(), pairs, posL, posR)
+        n = -(-npairs // EA_MAX_PAIRS)
+        before = extend_add_bucket.launches
+        got = extend_add_bucket(F.clone(), pairs, posL, posR, emap)
+        assert extend_add_bucket.launches == before + n
+        assert torch.equal(got, want)
+        # F one element off its allocation's alignment
+        buf = torch.empty(nf * p * p + 1, dtype=dtype, device=cuda_device)
+        Fo = buf[1:].view(nf, p, p)
+        Fo.copy_(F)
+        assert torch.equal(extend_add_bucket(Fo, pairs, posL, posR, emap),
+                           want)
+        h = nf // 2
+        for f0, f1 in ((0, h), (h, nf)):
+            part = [(C, idx[f0:f1], side) for C, idx, side in pairs]
+            got = extend_add_bucket(F[f0:f1].clone(), part, posL[f0:f1],
+                                    posR[f0:f1], emap, f0)
+            assert torch.equal(got, want[f0:f1])
+        part = [(C, idx[h:], side) for C, idx, side in pairs]
+        got = extend_add_bucket(F[h:].clone(), part, posL[h:], posR[h:],
+                                emap.slice(h, nf))
+        assert torch.equal(got, want[h:])
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
@@ -430,10 +504,10 @@ def test_empty_separator_fronts(cuda_device):
     opts = dict(reordering_method=st.ReorderingStrategy.AMD)
     x_cpu, _ = _solve_on("cpu", A, b, **opts)
     numeric.route_counts["empty"] = 0
-    ea = extend_add.launches
+    ea = extend_add_bucket.launches
     x, s = _solve_on(cuda_device, A, b, **opts)
     assert numeric.route_counts["empty"] == s.pdev.empty_buckets() > 0
-    assert extend_add.launches - ea == s.pdev.ea_pairs()
+    assert extend_add_bucket.launches - ea == s.pdev.ea_launches()
     np.testing.assert_allclose(x, x_cpu, rtol=0, atol=1e-10 * np.abs(x).max())
 
 
@@ -541,9 +615,9 @@ def test_structured_compression_solves(cuda_device, case):
     s = st.SparseSolver(opts, device=cuda_device)
     s.set_csr_matrix(A)
     s.reorder(*dims)
-    k1 = extend_add.launches
+    k1 = extend_add_bucket.launches
     s.factor()
-    assert extend_add.launches - k1 == s.pdev.ea_pairs() * s.factor_passes
+    assert extend_add_bucket.launches - k1 == s.pdev.ea_launches() * s.factor_passes
     b = A.spmv(np.random.default_rng(0).standard_normal(A.n))
     x, rc = s.solve(b)
     assert rc == st.ReturnCode.SUCCESS
@@ -566,10 +640,10 @@ def test_extend_add_of_compressed_child_on_card(cuda_device):
     comp = N._compress_cb(CB, t, 1e-3, 8)
     C = N._child_blocks(comp, idx).contiguous()
     F = torch.randn(nf, p, p, device=cuda_device)
-    before = extend_add.launches
-    got = extend_add(F.clone(), C, loc, pos)
-    assert extend_add.launches == before + 1
-    assert torch.equal(got, extend_add_plain(F.clone(), C, loc, pos))
+    before = extend_add_bucket.launches
+    got, want = _one_pair(F, C, loc, pos)
+    assert extend_add_bucket.launches == before + 1
+    assert torch.equal(got, want)
 
 
 def _grid_solver(device, A, dtype, tweak=None, **kw):
@@ -603,12 +677,12 @@ def test_complex_solves_match_the_cpu(cuda_device, dtype, via_real):
     xs = {}
     for dev in ("cpu", cuda_device):
         s = _grid_solver(dev, A, dtype, complex_via_real=via_real)
-        k1 = extend_add.launches
+        k1 = extend_add_bucket.launches
         x, rc = s.solve(b)
         assert rc == st.ReturnCode.SUCCESS
         assert np.iscomplexobj(x)
         if dev != "cpu":
-            assert extend_add.launches - k1 == s.pdev.ea_pairs() > 0
+            assert extend_add_bucket.launches - k1 == s.pdev.ea_launches() > 0
         xs[dev] = x
     tol = 1e-12 if dtype == "complex128" else 1e-4
     assert A.max_scaled_residual(xs[cuda_device], b) < tol
@@ -656,17 +730,17 @@ def test_chunked_exact_solve(cuda_device, monkeypatch):
     xs = {}
     for cap in ("0.001", "100"):
         monkeypatch.setenv("STRUMPACK_TPU_CHUNK_GB", cap)
-        before = (extend_add.launches, FL.partial_factor.launches,
+        before = (extend_add_bucket.launches, FL.partial_factor.launches,
                   FL.factor_bucket.launches)
         s = _grid_solver(cuda_device, A, "float64", nd_leaf=8,
                          krylov_solver=st.KrylovSolver.DIRECT)
         x, rc = s.solve(b)
         assert rc == st.ReturnCode.SUCCESS
-        got = (extend_add.launches - before[0],
+        got = (extend_add_bucket.launches - before[0],
                FL.partial_factor.launches - before[1],
                FL.factor_bucket.launches - before[2])
         dt = torch.float64
-        assert got == (s.pdev.ea_pairs(), s.pdev.k3_buckets(dt),
+        assert got == (s.pdev.ea_launches(), s.pdev.k3_buckets(dt),
                        s.pdev.k2_launches(dt))
         assert (s.pdev.chunked_buckets() > 0) == (cap == "0.001")
         xs[cap] = x

@@ -11,8 +11,6 @@ stores the same int8 tiles and scales and computes in float32.  The
 constructors from elements and from products (sampled, so replayed) are
 held the same way, and state carried over from the JAX package
 (``interop.facade_from_numpy``) solves as it does to 1e-12."""
-import functools
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -56,20 +54,24 @@ def replay(monkeypatch):
     torch_ref.jit_jax_structured(monkeypatch)
 
 
-@functools.lru_cache(maxsize=None)
 def _jax_facade(name):
     """The JAX package's facade object of ``name`` on cauchyish(256),
-    factored where it factors, with its product of x [256, 2] and solve
-    of A x (one build a type for every test of this file)."""
-    A = cauchyish(256)
-    x = np.random.default_rng(1).standard_normal((256, 2))
-    S = SJ.construct_from_dense(A, _opts(SJ, name))
-    y = np.asarray(S.mult(jnp.asarray(x)))
-    xs = None
-    if name in SOLVES:
-        S.factor()
-        xs = np.asarray(S.solve(jnp.asarray(A @ x)))
-    return A, x, S, y, xs
+    factored where it factors, as host data: its rank and memory, its
+    state (``torch_ref.facade_numpy``), its product of x [256, 2] and its
+    solve of A x (one build a type for the run: ``torch_ref.shared``)."""
+    def build():
+        A = cauchyish(256)
+        x = np.random.default_rng(1).standard_normal((256, 2))
+        S = SJ.construct_from_dense(A, _opts(SJ, name))
+        y = np.asarray(S.mult(jnp.asarray(x)))
+        xs = None
+        if name in SOLVES:
+            S.factor()
+            xs = np.asarray(S.solve(jnp.asarray(A @ x)))
+        return dict(A=A, x=x, y=y, xs=xs, rank=np.asarray(S.rank()).item(),
+                    memory=np.asarray(S.memory()).item(),
+                    state=torch_ref.facade_numpy(S))
+    return torch_ref.shared("facade-" + name, build)
 
 
 @pytest.mark.parametrize("name", TYPES)
@@ -77,10 +79,11 @@ def test_construct_from_dense_matches_jax(name):
     """Every Type through ``construct_from_dense``: the same rank and
     memory, products and solves of one and of two right-hand sides
     within the tolerance, a 1-D x giving a 1-D result."""
-    A, x, Sj, yj, xj = _jax_facade(name)
+    ref = _jax_facade(name)
+    A, x, yj, xj = ref["A"], ref["x"], ref["y"], ref["xs"]
     St = ST.construct_from_dense(A, _opts(ST, name), device="cpu")
-    assert St.rank() == Sj.rank()
-    assert St.memory() == Sj.memory()
+    assert St.rank() == ref["rank"]
+    assert St.memory() == ref["memory"]
     tol = TOL.get(name, 1e-10)
     yt = St.mult(x)
     assert yt.shape == (256, 2)
@@ -89,9 +92,9 @@ def test_construct_from_dense_matches_jax(name):
     assert y1.shape == (256,)
     assert _rel(y1, yj[:, 0]) < tol
     if name == "LOSSY":
-        np.testing.assert_array_equal(St.q.numpy(), np.asarray(Sj.q))
+        np.testing.assert_array_equal(St.q.numpy(), ref["state"]["q"])
         np.testing.assert_array_equal(St.scale.numpy(),
-                                      np.asarray(Sj.scale))
+                                      ref["state"]["scale"])
     if name in SOLVES:
         St.factor()
         xt = St.solve(A @ x)
@@ -104,10 +107,11 @@ def test_facade_state_carried_across(name):
     """The JAX package's compressed (and factored) state carried into the
     port's wrapper gives the JAX package's products and solves: to 1e-12
     in f64, LOSSY to float32 rounding."""
-    A, x, Sj, yj, xj = _jax_facade(name)
-    St = interop.facade_from_numpy(torch_ref.facade_numpy(Sj), "cpu")
+    ref = _jax_facade(name)
+    A, x, yj, xj = ref["A"], ref["x"], ref["y"], ref["xs"]
+    St = interop.facade_from_numpy(ref["state"], "cpu")
     tol = 1e-5 if name == "LOSSY" else 1e-12
-    assert St.rank() == Sj.rank() and St.memory() == Sj.memory()
+    assert St.rank() == ref["rank"] and St.memory() == ref["memory"]
     assert _rel(St.mult(x), yj) < tol
     if name in SOLVES:
         assert _rel(St.solve(A @ x), xj) < tol

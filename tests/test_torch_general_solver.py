@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 import torch_ref  # noqa: F401  (one torch thread a test worker)
+from torch_ref import jax_split_programs  # noqa: F401  (autouse)
 
 import strumpack_tpu as sj
 from strumpack_tpu.sparse.gen import poisson2d, random_spd

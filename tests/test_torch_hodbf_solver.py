@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import torch_ref
+from torch_ref import jax_split_programs  # noqa: F401  (autouse)
 from torch_ref import assert_flags_identical, solve_on_jax_factors, \
     solver_pair
 

@@ -32,8 +32,8 @@ def _imports(path):
 def test_package_run_imports_no_jax():
     """A fresh interpreter (no test conftest) imports the package and runs
     its host pipeline, a small CPU solve, a small BLR + GMRES solve, the
-    general-input paths (no grid, every ordering module, matching, SPD,
-    double float), the rank-structured fronts (HSS, sampled HSS, HODLR,
+    general-input paths (no grid, every ordering module, the distributed
+    ND's single-process case, matching, SPD, double float), the rank-structured fronts (HSS, sampled HSS, HODLR,
     the ZFP_BLR_HODLR composite with compressed CBs and ACA tiles), and
     complex input (native complex128 and complex_via_real) with HODBF
     fronts, every structured facade type and kernel fits (dense, sketch
@@ -62,6 +62,7 @@ def test_package_run_imports_no_jax():
         "x, rc = s.solve(A.spmv(np.ones(A.n)))\n"
         "assert rc == st.ReturnCode.SUCCESS\n"
         "for kw in (dict(), dict(reordering_method=st.ReorderingStrategy.AMD),\n"
+        "           dict(reordering_method=st.ReorderingStrategy.PARMETIS),\n"
         "           dict(reordering_method=st.ReorderingStrategy.SPECTRAL),\n"
         "           dict(matching=st.MatchingJob.MAX_DIAGONAL_PRODUCT_SCALING,\n"
         "                positive_definite=True),\n"
@@ -136,6 +137,7 @@ def test_sources_import_no_jax():
     for mod in ("ops/rrqr.py", "ops/panel_lu.py", "frontal/blr.py",
                 "krylov/solvers.py", "sparse/ordering/nd.py",
                 "sparse/ordering/separator_reorder.py", "ops/twofloat.py",
+                "sparse/ordering/nd_dist.py",
                 "sparse/matching.py", "sparse/ordering/amd.py",
                 "native/__init__.py", "ops/aca.py", "structured/hss.py",
                 "structured/hodlr.py", "structured/hss_sample.py",

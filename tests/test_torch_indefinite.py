@@ -8,6 +8,7 @@ import pytest
 import scipy.sparse as sp
 
 import torch_ref  # noqa: F401  (one torch thread a test worker)
+from torch_ref import jax_split_programs  # noqa: F401  (autouse)
 
 from strumpack_tpu.sparse.csr import CSRMatrix as SJ_CSR
 

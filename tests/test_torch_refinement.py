@@ -6,8 +6,9 @@ counts."""
 import numpy as np
 
 import torch_ref  # noqa: F401  (one torch thread a test worker)
+from torch_ref import jax_split_programs  # noqa: F401  (autouse)
 
-from strumpack_tpu.sparse.gen import poisson2d, poisson3d
+from strumpack_tpu.sparse.gen import poisson2d
 
 import strumpack_tpu_torch as st
 
@@ -49,9 +50,11 @@ def test_f32_factor_f64_refine():
 
 
 def test_double_float_refinement():
-    """bench.py's df32: f32 factors, residuals in double float; the same
-    iteration count as the JAX package's and bench.py's 1e-10 gate."""
-    A = poisson3d(8)
+    """bench.py's df32 options (f32 factors, residuals in double float)
+    on Poisson 12^2, which takes the 2 refinement steps Poisson 8^3 took
+    (a smaller plan: fewer JAX programs to compile); the same iteration
+    count as the JAX package's and bench.py's 1e-10 gate."""
+    A = poisson2d(12)
     ref, port = _pair(A, factor_dtype="float32", refine_dtype="float32x2",
                       rel_tol=1e-12, abs_tol=1e-13)
     b = _rhs(A)

@@ -6,7 +6,8 @@ import numpy as np
 import pytest
 import torch
 
-import torch_ref  # noqa: F401  (one torch thread a test worker)
+from torch_ref import jax_tree_numpy, shared
+from torch_ref import jax_split_programs  # noqa: F401  (autouse)
 
 import strumpack_tpu as sj
 from strumpack_tpu.frontal import numeric as sj_numeric
@@ -35,6 +36,35 @@ def _port_solver(A, dims, **opts):
     return s
 
 
+def _jax_ref(name):
+    """The JAX package's side of a problem, as host data: its solve of b
+    (refinement, AUTO) and iteration count, its factors, and its solve
+    of the permuted b on those factors."""
+    make, dims = PROBLEMS[name]
+    A = make()
+    b = A.spmv(np.random.default_rng(0).standard_normal(A.n))
+    ref = sj.SparseSolver(sj.SPOptions())
+    ref.set_csr_matrix(A)
+    ref.reorder(*dims)
+    x_ref, rc_ref = ref.solve(b)
+    assert rc_ref.name == "SUCCESS"
+    bp = ref._transform_b(b)
+    return dict(x_ref=np.asarray(x_ref), ref_its=ref.Krylov_iterations(),
+                ref_tree=jax_tree_numpy(ref.fac.tree), ref_bp=bp,
+                ref_solve=np.asarray(sj_numeric.solve(ref.fac, bp)))
+
+
+class _Pair(dict):
+    """The port's solve, and the JAX package's side (``_jax_ref``) at the
+    first test that reads it, computed once for the run (``torch_ref.
+    shared``): ``test_direct_residual`` never needs it."""
+
+    def __missing__(self, key):
+        self.update(shared("solver-" + self["name"],
+                           lambda: _jax_ref(self["name"])))
+        return self[key]
+
+
 @pytest.fixture(scope="module", params=sorted(PROBLEMS))
 def pair(request):
     """Both packages' solvers on one problem, f64, refinement (AUTO)."""
@@ -42,21 +72,16 @@ def pair(request):
     A = make()
     rng = np.random.default_rng(0)
     b = A.spmv(rng.standard_normal(A.n))
-    ref = sj.SparseSolver(sj.SPOptions())
-    ref.set_csr_matrix(A)
-    ref.reorder(*dims)
-    x_ref, rc_ref = ref.solve(b)
     port = _port_solver(A, dims)
     x, rc = port.solve(b)
-    assert rc_ref.name == rc.name == "SUCCESS"
-    return dict(A=A, b=b, dims=dims, ref=ref, port=port, x_ref=x_ref, x=x)
+    assert rc.name == "SUCCESS"
+    return _Pair(name=request.param, A=A, b=b, dims=dims, port=port, x=x)
 
 
 def test_solution_and_iterations_match(pair):
     """Same IR iteration count; solutions equal to 1e-10 of their size
     (two exact f64 LUs of a well-conditioned matrix differ by rounding)."""
-    assert pair["port"].Krylov_iterations() == \
-        pair["ref"].Krylov_iterations()
+    assert pair["port"].Krylov_iterations() == pair["ref_its"]
     x, x_ref = pair["x"], np.asarray(pair["x_ref"])
     np.testing.assert_allclose(x, x_ref, rtol=0,
                                atol=1e-10 * np.abs(x_ref).max())
@@ -65,7 +90,7 @@ def test_solution_and_iterations_match(pair):
 def test_factors_match(pair):
     """Per bucket: perm exact, lu/L21/U12 to 1e-10 of each array's
     largest entry (K3 and the library route against the XLA LU)."""
-    ref_tree = pair["ref"].fac.tree
+    ref_tree = pair["ref_tree"]
     port_tree = pair["port"].fac.tree
     assert set(port_tree["lu"]) == set(ref_tree["lu"])
     for key in ref_tree["lu"]:
@@ -93,11 +118,9 @@ def test_solve_on_jax_factors(pair):
     """The port's solve on the JAX factors (interop) against the JAX
     solve of the same permuted right-hand side: 1e-12 relative (only the
     solve's own rounding differs)."""
-    ref, port = pair["ref"], pair["port"]
-    bp = ref._transform_b(pair["b"])
-    want = np.asarray(sj_numeric.solve(ref.fac, bp))
-    tree = {name: {k: np.asarray(v) for k, v in ref.fac.tree[name].items()}
-            for name in ("lu", "perm", "L21", "U12")}
+    port, bp, want = pair["port"], pair["ref_bp"], pair["ref_solve"]
+    tree = {name: pair["ref_tree"][name] for name in ("lu", "perm", "L21",
+                                                     "U12")}
     fac = factors_from_numpy(port.pdev, tree)
     got = st_numeric.solve(fac, bp).numpy()
     np.testing.assert_allclose(got, want, rtol=0,

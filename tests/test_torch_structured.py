@@ -14,7 +14,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
-from torch_ref import jax_draw
+from torch_ref import jax_draw, shared
 
 from strumpack_tpu.frontal import numeric as NJ
 from strumpack_tpu.structured import hodlr as OJ
@@ -46,9 +46,12 @@ def _schur(m, w):
     return A[sep][:, sep].toarray() - Ais.T @ X
 
 
-@pytest.fixture(scope="module")
+@pytest.fixture
 def S256():
-    return _schur(256, 8)
+    """``_schur(256, 8)``, built once for the run (``torch_ref.shared``):
+    a module fixture was rebuilt by every worker each time it came back
+    to the module."""
+    return shared("schur-256-8", lambda: _schur(256, 8))
 
 
 @pytest.fixture(autouse=True)

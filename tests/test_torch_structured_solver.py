@@ -120,12 +120,15 @@ def test_plans_identical(name):
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_solver_matches_jax(name):
+def test_solver_matches_jax(name, monkeypatch):
     """The port's solve on the JAX package's factors within 1e-10 of the
     JAX solve (no randomness between them); then both solvers on their
     own: rc SUCCESS, the JAX test's residual gate, and Krylov iterations
     within 2 of the JAX package's.  At ``SOLVE_CASES``' grid, whose plan
-    holds buckets of the case's kinds."""
+    holds buckets of the case's kinds.  The JAX solver runs its
+    split-program mode (one right-hand side here; see
+    ``torch_ref.jax_split_programs``)."""
+    monkeypatch.setattr(sj_numeric, "SPLIT_SOLVE_BUCKETS", 0)
     A, ref, port, kinds = _pair(name, solve=True)
     have = port.pdev.kinds()
     assert all(have[k] > 0 for k in kinds), (kinds, have)

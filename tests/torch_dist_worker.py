@@ -283,6 +283,62 @@ def solver_grid(mesh, inp):
     return out
 
 
+def solver_lossy_grid(mesh, inp):
+    """DIRECT f64 with LOSSY factors on a plan with a grid bucket
+    (``inp["lossy"]``: Poisson nx^3, nd_leaf, b, SPOptions fields): x,
+    return code, max scaled residual, the mode counts and each grid
+    bucket's lossy bits."""
+    import strumpack_tpu_torch as st
+    from strumpack_tpu_torch.sparse.gen import poisson3d
+    nx, leaf, b, kw = inp["lossy"]
+    A = poisson3d(nx)
+    s = _solver(mesh, leaf, krylov_solver=st.KrylovSolver.DIRECT,
+                factor_dtype="float64",
+                compression=st.CompressionType.LOSSY, **kw)
+    s.set_csr_matrix(A)
+    s.reorder(nx, nx, nx)
+    x, rc = s.solve(b)
+    bits = [s.pdev.levels[li][bi].bp.lossy
+            for (li, bi), m in s.sp.modes.items() if m == "grid"]
+    return (x, rc.name, A.max_scaled_residual(x, b), s.sp.counts(), bits)
+
+
+def nd_dist(mesh, inp):
+    """The distributed-work nested dissection of ``inp["nd"]`` (rowptr,
+    colind, n, leaf) on two groups of 2 ranks ("P2") and on the world of 4
+    ("P4"), and the world's DistributedSparseSolver ordered by PARMETIS on
+    the same matrix ("solver": its perm, iperm and tree, and a DIRECT
+    solve's max scaled residual): perm, iperm and the tree's arrays."""
+    import strumpack_tpu_torch as st
+    from strumpack_tpu_torch.sparse.csr import CSRMatrix
+    from strumpack_tpu_torch.sparse.ordering.nd_dist import \
+        nested_dissection_distributed
+    rp, ci, n, leaf = inp["nd"]
+
+    def arrays(perm, iperm, tree):
+        return (np.asarray(perm), np.asarray(iperm)) + tuple(
+            np.asarray(getattr(tree, k)) for k in
+            ("sep_begin", "sep_end", "parent", "lch", "rch"))
+
+    # every rank creates both groups, in the same order
+    halves = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    out = {"P2": arrays(*nested_dissection_distributed(
+               rp, ci, n, leaf=leaf, group=halves[dist.get_rank() // 2])),
+           "P4": arrays(*nested_dissection_distributed(rp, ci, n,
+                                                       leaf=leaf))}
+    A = CSRMatrix(n, rp, ci, inp["nd_vals"])
+    s = _solver(mesh, leaf, krylov_solver=st.KrylovSolver.DIRECT,
+                factor_dtype="float64",
+                reordering_method=st.ReorderingStrategy.PARMETIS)
+    s.set_csr_matrix(A)
+    s.reorder()
+    b = np.ones(n)
+    x, _ = s.solve(b)
+    out["solver"] = (arrays(s.perm, s.iperm, s.tree),
+                     A.max_scaled_residual(x, b))
+    return out
+
+
 def solver_1x2x2(mesh, inp):
     """``solver`` on a second mesh of the same 4 ranks: ('b', 'r', 'c') of
     1 x 2 x 2."""

@@ -14,10 +14,20 @@
   ``facade_numpy`` and ``kernel_numpy``: a JAX structured facade object
   and a fitted JAX kernel as the dicts ``interop.facade_from_numpy`` and
   ``interop.kernel_from_numpy`` take.
+* ``shared``: a JAX reference computed once for a whole test run, not
+  once by every pytest-xdist worker that runs a test needing it.
+* ``jax_split_programs``: an autouse fixture for the modules that import
+  it: the JAX package's solver in its split-program mode.
 """
+import fcntl
+import os
+import pickle
+import tempfile
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import threadpoolctl
 import torch
 
@@ -26,6 +36,57 @@ torch.set_num_threads(1)
 # oversubscribe the host's cores, and the test processes' reference
 # products (Schur complements, dense solves) are small
 threadpoolctl.threadpool_limits(1, user_api="blas")
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_split_programs():
+    """The JAX package's factorization and solve in their split-program
+    mode for the tests of a module that imports this fixture: per-level
+    programs, kept by signature, as the JAX package runs every plan of
+    more than ``SPLIT_SOLVE_BUCKETS`` buckets and as its
+    ``tests/test_split_mode.py`` forces on small plans.  The whole-phase
+    program of a small plan costs more to compile (Poisson 16^3 with BLR
+    fronts: 24.1 s against 13.4 s on the CPU).  The mode also solves
+    several right-hand sides column by column and reports the sum of
+    their Krylov iterations, so a module that compares multi-rhs counts
+    (``test_torch_structured_solver.py``) does not import it.  Restored
+    at the module's end."""
+    from strumpack_tpu.frontal import numeric
+    old = numeric.SPLIT_SOLVE_BUCKETS
+    numeric.SPLIT_SOLVE_BUCKETS = 0
+    yield
+    numeric.SPLIT_SOLVE_BUCKETS = old
+
+
+_SHARED = {}
+
+
+def shared(name, fn):
+    """``fn()``, computed once for the test run and kept: pytest-xdist
+    runs the tests of one module on several workers, and each of them
+    built the same JAX reference.  Under xdist the first worker to ask
+    computes it while holding a file lock and pickles it into a
+    directory of the run (``PYTEST_XDIST_TESTRUNUID``) in the temporary
+    directory; the others wait for the lock and load it.  ``fn`` returns
+    picklable host data (numpy arrays, numbers)."""
+    if name not in _SHARED:
+        run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+        if run is None:
+            _SHARED[name] = fn()
+            return _SHARED[name]
+        d = os.path.join(tempfile.gettempdir(), f"strumpack-port-refs-{run}")
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, name + ".pkl")
+        with open(path + ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if os.path.exists(path):
+                with open(path, "rb") as f:
+                    _SHARED[name] = pickle.load(f)
+            else:
+                _SHARED[name] = fn()
+                with open(path + ".tmp", "wb") as f:
+                    pickle.dump(_SHARED[name], f)
+                os.replace(path + ".tmp", path)
+    return _SHARED[name]
 
 _JDT = {torch.float32: jnp.float32, torch.float64: jnp.float64,
         torch.complex64: jnp.complex64, torch.complex128: jnp.complex128}

@@ -48,6 +48,15 @@ def counting_wrappers():
         w.launches = 0
         return w
 
+    def k1(orig):
+        # the kernel's count: one per EA_MAX_PAIRS pairs where the fronts
+        # take an addend
+        def w(F, pairs, posL, posR, emap, f0=0):
+            w.launches += emap.launches(f0, f0 + F.shape[0], len(pairs))
+            return orig(F, pairs, posL, posR, emap, f0)
+        w.launches = 0
+        return w
+
     def pivot(w, a, k):
         w.modes["pivot" if k.get("pivot", True) else "nopivot"] += 1
 
@@ -56,7 +65,8 @@ def counting_wrappers():
         w.variants[PP.design(pan.shape[1], a[3], pan.element_size(),
                              row0)[0]] += 1
 
-    EA.extend_add = numeric.extend_add = counted(EA.extend_add)
+    EA.extend_add_bucket = numeric.extend_add_bucket = k1(
+        EA.extend_add_bucket)
     FL.partial_factor = counted(FL.partial_factor, pivot)
     FL.partial_factor.modes = {"pivot": 0, "nopivot": 0}
     FL.factor_bucket = counted(FL.factor_bucket, pivot)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time the steady factorization of exact32 and exact64 (chip_smoke.py's
-configurations: Poisson 32^3 and 64^3, f32, nd_leaf 16) with one version
-of strumpack_tpu_torch, on one NVIDIA GPU.
+configurations: Poisson 32^3 and 64^3, f32, nd_leaf 16), and with
+``--nd64`` of nd64 (Poisson 64^3 without its grid, chip_smoke's phase 8),
+with one version of strumpack_tpu_torch, on one NVIDIA GPU.
 
-    python3 tools/factor_time.py [ROOT]
+    python3 tools/factor_time.py [ROOT] [--nd64]
 
 ROOT (default: this checkout) holds the strumpack_tpu_torch to time, so
 that two versions can be timed in turns in one run on one card:
@@ -33,6 +34,7 @@ REPS = 7                    # steady factorizations a cell
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("root", nargs="?", default=HERE)
+    ap.add_argument("--nd64", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -50,8 +52,9 @@ def main():
     spec.loader.exec_module(cs)
     from strumpack_tpu_torch.frontal import numeric
     numeric.use_full_fp32_matmul()
-    for cell, nx in (("exact32", 32), ("exact64", 64)):
-        A, s, _ = cs.make_solver(nx, "float32", 1e-5)
+    for cell in ("exact32", "exact64") + (("nd64",) if args.nd64 else ()):
+        A, s, _ = (cs.make_general(cell) if cell == "nd64" else
+                   cs.make_solver(int(cell[5:]), "float32", 1e-5))
         for k in numeric.route_counts:
             numeric.route_counts[k] = 0
         s.factor()
